@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--profile TICKS]
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -13,17 +13,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    large time gaps).
 4. serve at the paper model's widths (tgn_pres CONFIG: d=100, d_time=32,
    K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay over the
-   serve tail with recommend_topk; the kernel launch counters are zeroed
-   just before and read just after, and every kernel must have launched.
-   The same replay then runs with kernels_mode="oracle" and the states,
-   query scores and top-k are compared.
+   serve tail with recommend_topk. The same replay then runs with
+   kernels_mode="oracle" and the states, query scores and top-k are
+   compared.
 5. serve at the PRODUCTION widths (d=128, d_time=64, K=16, 2 layers) on the
-   first events of the 120,000-node stream-small graph, with the same
-   counters and a comparison of queries and top-k against the plain path.
-6. kernels: each kernel and its plain version timed (CUDA events, median)
-   on the largest inputs it received in one more fold, query and top-k at
-   the end of each serve phase (after the counters were read), compared
-   there, and set beside the card's bound for that work.
+   first events of the 120,000-node stream-small graph, with a comparison
+   of queries and top-k against the plain path.
+6. train-config-pres: Alg. 2 (PRES) at CONFIG widths on wiki-small, one
+   epoch (27 lag-one steps at b=500) through loop.run_epoch, then
+   loop.evaluate over the validation split; then the same epoch from the
+   same start and negatives with kernels_mode="oracle", compared.
+7. train-config-std: the same for Alg. 1 (PRES off, the gru_cell kernel);
+   then both algorithms for one epoch through the training CLI
+   (`python -m repro_torch.launch.train`, its default device).
+8. train-production: 40 steps each of Alg. 2 and Alg. 1 at PRODUCTION
+   widths on the first 41,000 stream-small events (b=1000), the first 3
+   steps' losses compared with the plain path; step time, events/s and
+   peak device memory.
+9. kernels: each kernel and its plain version timed (CUDA events, median)
+   on the largest inputs it received in the phase that captured them (the
+   serve phases' probe after their counters were read; gru_cell during
+   the Alg. 1 train phases), compared there, set beside the card's bound
+   for that work and, where one PyTorch call computes the same function,
+   beside that call's time.
+
+Phases 4-8 each name the kernels their path must launch and those it must
+not: the launch counters are zeroed just before the phase drives its path
+and read just after.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}."""
@@ -47,12 +63,29 @@ PEAK_FP32 = 67e12
 # fp32 sums running in another order; the outputs listed in EXACT (by
 # position) are copies, not sums, and must be equal (memory_update_table's
 # last_t holds the event times it scatters)
-TOL = {"memory_update_table": 1e-5, "embed_attn": 1e-4, "link_score": 1e-4}
+TOL = {"memory_update_table": 1e-5, "embed_attn": 1e-4, "link_score": 1e-4,
+       "gru_cell": 1e-5}
 EXACT = {"memory_update_table": (1,)}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"memory_update_table": CSRC + "memory_update.cu",
            "embed_attn": CSRC + "embed_attn.cu",
-           "link_score": CSRC + "link_score.cu"}
+           "link_score": CSRC + "link_score.cu",
+           "gru_cell": CSRC + "gru_cell.cu"}
+SERVE_KERNELS = ("memory_update_table", "embed_attn", "link_score")
+# training against the plain route. Per step, from the same state: loss,
+# logits and memory table within fp32 sums in another order. The first
+# moments (0.1 x the gradients) are held at 1e-2 of their largest entry as
+# one vector and each leaf at 5e-2 of its own: a dropped or misrouted
+# gradient path is off by all of itself, while rounding-level differences
+# give about 1e-6, except where a pre-activation lies within rounding of a
+# ReLU's kink: the two routes then take different sides and one row's
+# share of a weight's gradient moves (measured by this script on the H100:
+# up to 3.9e-3 of the embedding's output projection over the 27 steps of
+# train-config-pres). Free-running over an epoch: train and val AP (the
+# routes drift apart chaotically past the first steps, see train_phase).
+STEP_TOL = {"loss": 1e-5, "logits": 1e-4, "memory": 1e-5, "moments": 1e-2,
+            "moments_leaf": 5e-2}
+AP_LIMIT = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -129,12 +162,21 @@ def work(name, args):
         flops = (2 * r * ds * e + rows * 4 * din * e
                  + nv * (4 * dtime * e + 4 * e + 2 * dtime))
         return nbytes, flops
-    h_src, h_items, w1, b1, w2, _ = args
-    nb, d = h_src.shape
-    ni = h_items.shape[0]
-    nbytes = ((nb + ni) * d + w1.numel() + 2 * d + 1 + nb * ni) * f
-    flops = 2 * (nb + ni) * d * d + 5 * nb * ni * d
-    return nbytes, flops
+    if name == "link_score":
+        h_src, h_items, w1, b1, w2, _ = args
+        nb, d = h_src.shape
+        ni = h_items.shape[0]
+        nbytes = ((nb + ni) * d + w1.numel() + 2 * d + 1 + nb * ni) * f
+        flops = 2 * (nb + ni) * d * d + 5 * nb * ni * d
+        return nbytes, flops
+    if name == "gru_cell":
+        x, h, w, u, b = args
+        m, din = x.shape
+        d = h.shape[1]
+        nbytes = (m * (din + 2 * d) + w.numel() + u.numel() + b.numel()) * f
+        flops = m * (2 * 3 * d * (din + d) + 20 * d)
+        return nbytes, flops
+    raise SmokeFailure(f"no work count for kernel {name!r}")
 
 
 def shape_of(name, a):
@@ -143,7 +185,19 @@ def shape_of(name, a):
     if name == "embed_attn":
         return (f"R={a[0].shape[0]} K={a[2].shape[1]} U={a[1].shape[0]} "
                 f"E={a[7].shape[1]}")
+    if name == "gru_cell":
+        return f"M={a[0].shape[0]} D={a[1].shape[1]} Din={a[0].shape[1]}"
     return f"B={a[0].shape[0]} I={a[1].shape[0]} D={a[0].shape[1]}"
+
+
+def check_launches(label, counts, expect, forbid):
+    """The phase's path launched every kernel of `expect` and none of
+    `forbid`."""
+    log(f"[{label}] launches {json.dumps(counts)}")
+    require(all(counts[k] > 0 for k in expect),
+            f"{label}: a kernel of the path never launched: {counts}")
+    require(all(counts[k] == 0 for k in forbid),
+            f"{label}: a kernel off the path launched: {counts}")
 
 
 def bound(name, args):
@@ -241,6 +295,12 @@ def edge_cases(dev):
         args = [t(f(b, d)), t(f(i, d)), t(f(2 * d, d, sc=d ** -0.5)),
                 t(f(d, sc=0.1)), t(f(d, 1, sc=d ** -0.5)), t(f(1))]
         cases.append(("link_score", args, {}, f"B={b} I={i} D={d}"))
+    for m, d, din in [(1, 8, 8), (37, 16, 24), (1000, 100, 100),
+                      (2000, 128, 128)]:
+        args = [t(f(m, din)), t(f(m, d, sc=0.5)),
+                t(f(din, 3 * d, sc=din ** -0.5)), t(f(d, 3 * d, sc=d ** -0.5)),
+                t(f(3 * d, sc=0.1))]
+        cases.append(("gru_cell", args, {}, f"M={m} D={d} Din={din}"))
     return cases
 
 
@@ -250,19 +310,25 @@ def edge_cases(dev):
 
 
 class Capture:
-    """Keeps a copy of the largest inputs each kernel received (the latest
-    among equals) while it is entered; the launch goes through unchanged."""
+    """Keeps a copy of the largest inputs each kernel of `names` (default:
+    all) received while it is entered, the latest among equals, or with
+    `latest=False` the first (a timed run then copies only when a larger
+    input arrives); the launch goes through unchanged."""
 
-    def __init__(self):
+    def __init__(self, names=None, latest=True):
         from repro_torch.kernels import ops
         self.ops = ops
         self.saved = dict(ops.REGISTRY)
+        self.names = set(names or self.saved)
+        self.latest = latest
         self.best = {}
 
     @staticmethod
     def size(name, args):
         if name == "memory_update_table":
             return args[2].shape[0]
+        if name == "gru_cell":
+            return args[0].shape[0]
         if name == "link_score":
             return args[0].shape[0] * args[1].shape[0]
         return args[0].shape[0] * args[2].shape[1]
@@ -271,13 +337,15 @@ class Capture:
         def wrap(name, fn):
             def run(*args, **kw):
                 s = self.size(name, args)
-                if s >= self.best.get(name, (-1,))[0]:
+                top = self.best.get(name, (-1,))[0]
+                if s > top or (self.latest and s == top):
                     self.best[name] = (s, [a.clone() for a in args], dict(kw))
                 return fn(*args, **kw)
             return run
         for name, spec in self.saved.items():
-            self.ops.REGISTRY[name] = dataclasses.replace(
-                spec, cuda=wrap(name, spec.cuda))
+            if name in self.names:
+                self.ops.REGISTRY[name] = dataclasses.replace(
+                    spec, cuda=wrap(name, spec.cuda))
         return self
 
     def __exit__(self, *exc):
@@ -314,7 +382,6 @@ def _report(label, rep, counts, engine):
         f"ingest p50={rep.ingest_p50_ms:.3f}ms p99={rep.ingest_p99_ms:.3f}ms "
         f"query p50={rep.query_p50_ms:.3f}ms p99={rep.query_p99_ms:.3f}ms "
         f"online_AP={rep.online_ap:.4f}")
-    log(f"[{label}] launches {json.dumps(counts)}")
     st = engine.state
     mb = lambda *ts: sum(x.numel() * x.element_size() for x in ts) / 1e6
     log(f"[{label}] state MB: memory={mb(st['memory'].mem):.1f} "
@@ -352,8 +419,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _report(label, rep, counts, eng)
-    require(all(v > 0 for v in counts.values()),
-            f"{label}: a kernel of the path never launched: {counts}")
+    check_launches(label, counts, SERVE_KERNELS, ("gru_cell",))
     require(np.isfinite(scores).all() and scores.shape == (big_query,),
             f"{label}: bad query scores")
     require(vals.shape == (len(topk_src), k) and np.isfinite(vals).all()
@@ -416,19 +482,274 @@ def _profile(label, eng, stream, lo, ticks, q_src, q_dst, q_t):
                        stream.feat[a:b])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(label, prof, wall_us, f"{ticks} x (query 64 pairs + "
+                    f"fold {step} events)")
+
+
+def _report_profile(label, prof, wall_us, what):
+    """Device time by kernel and the device busy share of the window's
+    wall time (the profiler's own host overhead is inside that wall
+    time)."""
+    import torch
     # device-side entries, without the engine's record_function ranges
     # (those span their kernels and the gaps between them)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith("serve_")]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[{label}] profile: {ticks} x (query 64 pairs + fold {step} "
-        f"events): wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
+    log(f"[{label}] profile: {what}: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
         f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[{label}] profile: {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d} x {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: training
+# ---------------------------------------------------------------------------
+
+
+def _clone(params, opt_state, state):
+    """Copies of a training start that share no storage with it."""
+    from repro_torch.models import mdgnn
+    from repro_torch.utils.tree import tree_map
+    return (tree_map(lambda t: t.detach().clone(), params),
+            tree_map(lambda t: t.clone(), opt_state),
+            mdgnn.clone_state(state))
+
+
+def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
+    """loop.run_epoch over the first `steps` lag-one steps from clones of
+    `start` = (params, opt_state, state), then loop.evaluate when `val`
+    = (batches, negatives) is given. Returns (per-step losses, per-step
+    device-synced seconds (timed runs), EpochResult, (val AP, val AUC) or
+    None, final state)."""
+    import torch
+    from repro_torch.train import loop
+    params, opt_state, state = _clone(*start)
+    step = loop.make_train_step(cfg, opt)
+    losses, secs = [], []
+
+    def recorded(*a):
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = step(*a)
+        if timed:
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        losses.append(out[3]["loss"])
+        return out
+
+    params, opt_state, state, res = loop.run_epoch(
+        params, opt_state, state, batches[:steps + 1], cfg, recorded, None,
+        dst_range, negatives=negs[:steps])
+    ev = None
+    if val is not None:
+        _, vap, vauc = loop.evaluate(params, state, val[0], cfg,
+                                     loop.make_eval_step(cfg), None,
+                                     dst_range, negatives=val[1])
+        ev = (vap, vauc)
+    return [float(x) for x in losses], secs, res, ev, state
+
+
+def _profile_train(label, cfg, opt, start, batches, negs, n):
+    """torch.profiler over train steps 2..n+1 from clones of `start` (the
+    first step, unprofiled, warms the allocator)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import loop
+    params, opt_state, state = _clone(*start)
+    step = loop.make_train_step(cfg, opt)
+    params, opt_state, state, _ = step(params, opt_state, state, batches[0],
+                                       batches[1], negs[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, n + 1):
+            params, opt_state, state, _ = step(params, opt_state, state,
+                                               batches[i], batches[i + 1],
+                                               negs[i])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(label, prof, wall_us, f"{n} train steps")
+
+
+def _step_vs_plain(cfg, opt, start, batches, negs, steps):
+    """Every step of the kernel route against the plain route's step taken
+    from the SAME parameters, optimizer state and model state, so no
+    difference is carried from one step to the next. Returns the worst
+    relative difference of each quantity over the steps: the loss, the
+    logits, the memory table after the step, and the optimizer's first
+    moments (after one step 0.1 x the gradient) as one vector and leaf by
+    leaf, with the worst leaf's name."""
+    from repro_torch.train import loop
+    from repro_torch.utils.tree import tree_leaves
+    params, opt_state, state = _clone(*start)
+    k_step = loop.make_train_step(cfg, opt)
+    p_step = loop.make_train_step(
+        dataclasses.replace(cfg, kernels_mode="oracle"), opt)
+    amax = lambda t: float(t.abs().max())
+    rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
+    names = _leaf_names(start[0])
+    worst = {"loss": 0.0, "logits": 0.0, "memory": 0.0, "moments": 0.0,
+             "moments_leaf": 0.0, "worst_leaf": None}
+    for i in range(steps):
+        _, p_os, p_st, p_m = p_step(*_clone(params, opt_state, state),
+                                    batches[i], batches[i + 1], negs[i])
+        params, opt_state, state, k_m = k_step(
+            params, opt_state, state, batches[i], batches[i + 1], negs[i])
+        k_mu, p_mu = tree_leaves(opt_state["mu"]), tree_leaves(p_os["mu"])
+        top = max(amax(b) for b in p_mu)
+        got = {"loss": rel(k_m["loss"], p_m["loss"], 0.0),
+               "logits": max(rel(k_m[k], p_m[k], 1.0)
+                             for k in ("logit_p", "logit_n")),
+               "memory": rel(state["memory"].mem, p_st["memory"].mem, 1.0),
+               "moments": max(amax(a - b) for a, b in zip(k_mu, p_mu)) / top}
+        for k, v in got.items():
+            worst[k] = max(worst[k], v)
+        for name, a, b in zip(names, k_mu, p_mu):
+            if amax(a) or amax(b):
+                r = rel(a, b, 1e-30)
+                if r > worst["moments_leaf"]:
+                    worst["moments_leaf"], worst["worst_leaf"] = r, name
+    return worst
+
+
+def _leaf_names(tree, path=""):
+    """'/'-joined key paths of the leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{path}/{k}")]
+    return [path]
+
+
+def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
+                n_batches, expect, forbid, oracle_steps=None, profile=0):
+    """Train one epoch of `n_batches` temporal batches (then evaluate on
+    `val_s` unless it is None) through the kernels, counting launches;
+    then the same from the same start and negatives through the plain
+    versions, for all steps or the first `oracle_steps`, and compare.
+    Returns (launch counts, captured gru_cell inputs, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+
+    batches = train_s.temporal_batches(batch_size, dev)[:n_batches]
+    steps = len(batches) - 1
+    gen = torch.Generator(dev).manual_seed(0)
+    negs = [sample_negatives(gen, b, *dst_range) for b in batches[1:]]
+    val = None
+    if val_s is not None:
+        vb = val_s.temporal_batches(batch_size, dev)
+        val = (vb, [sample_negatives(gen, b, *dst_range) for b in vb[1:]])
+    opt = adamw(1e-3)
+    params = mdgnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    start = (params, opt.init(params), mdgnn.init_state(cfg, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # the inputs are copied at the first step only, which events/s and the
+    # median step leave out
+    with Capture(names=("gru_cell",), latest=False) as cap:
+        losses, secs, res, ev, state = _run_train(
+            cfg, opt, start, batches, steps, negs, val, dst_range, True)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check_launches(label, counts, expect, forbid)
+    require(np.isfinite(losses).all() and len(losses) == steps,
+            f"{label}: bad losses {losses}")
+    require(bool(torch.isfinite(state["memory"].mem).all()),
+            f"{label}: memory table not finite")
+    require(0.0 <= res.ap <= 1.0, f"{label}: train AP out of range")
+    # the first step pays one-time costs (cuBLAS handles, autograd's first
+    # backward, the allocator): reported apart, and left out of events/s
+    summary = {"steps": steps, "batch": batch_size,
+               "first_step_ms": secs[0] * 1e3,
+               "step_ms_median": float(np.median(secs[1:])) * 1e3,
+               "train_events_per_s": (steps - 1) * batch_size
+               / sum(secs[1:]), "loss": res.loss,
+               "train_ap": res.ap, "peak_mem_mb": peak_mb,
+               "first_losses": losses[:3]}
+    if ev is not None:
+        summary.update(val_ap=ev[0], val_auc=ev[1])
+    log(f"[{label}] {json.dumps(summary)}")
+
+    # free-running: the same epoch from the same start and negatives
+    # through the plain versions. Their rounding differences (1e-7, and the
+    # order of the atomic sums in the gathers' backward) grow from step to
+    # step through training (AdamW turns a near-zero gradient's rounding
+    # into a whole update), so past the first steps this bounds the
+    # outcome, not the arithmetic
+    o_cfg = dataclasses.replace(cfg, kernels_mode="oracle")
+    o_losses, _, o_res, o_ev, o_state = _run_train(
+        o_cfg, opt, start, batches, oracle_steps or steps, negs,
+        val if oracle_steps is None else None, dst_range, False)
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, o_losses)]
+    diff = {"loss_rel_by_step": rel}
+    if oracle_steps is None:
+        diff.update(train_ap=abs(res.ap - o_res.ap),
+                    memory_table=float((state["memory"].mem
+                                        - o_state["memory"].mem).abs().max()))
+        if ev is not None:
+            diff["val_ap"] = abs(ev[0] - o_ev[0])
+        # teacher-forced: every step from the same state, held tightly
+        diff["per_step"] = _step_vs_plain(cfg, opt, start, batches, negs,
+                                          steps)
+    log(f"[{label}] vs plain path: {json.dumps(diff)}")
+    require(max(rel[:3]) <= 1e-4, f"{label}: first losses {losses[:3]} vs "
+            f"plain {o_losses[:3]}")
+    for k in ("train_ap", "val_ap"):
+        require(diff.get(k, 0.0) <= AP_LIMIT, f"{label}: {k} differs from "
+                f"the plain route's by {diff.get(k)}")
+    for k, lim in STEP_TOL.items():
+        got = diff.get("per_step", {}).get(k, 0.0)
+        require(got <= lim, f"{label}: a step's {k} differs from the plain "
+                f"step's by {got:.3g} (relative) > {lim}")
+    summary["vs_plain"] = diff
+    if profile:
+        _profile_train(label, cfg, opt, start, batches, negs,
+                       min(profile, steps - 1))
+    return counts, cap.best, summary
+
+
+def cli_phase(label, argv, expect, forbid):
+    """`python -m repro_torch.launch.train` with `argv` on the card (its
+    default device), one epoch; its epoch line is printed by the CLI."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    ops.reset_launch_counts()
+    hist = train_cli.main(argv)
+    check_launches(label, ops.launch_counts(), expect, forbid)
+    h = hist[-1]
+    require(len(hist) == 1 and np.isfinite(h["loss"])
+            and 0.0 <= h["val_ap"] <= 1.0, f"{label}: bad history {hist}")
+    return h
+
+
+def library_gru_cell(args):
+    """torch.gru_cell computing the port's cell on the same inputs, as the
+    kernel's yardstick (never on the path). PyTorch's z weights h, the
+    port's weights n: with the z blocks of W, U and b negated,
+    sigmoid(-a) = 1 - sigmoid(a) turns one into the other. The hidden bias
+    is zero (the port has none)."""
+    import torch
+    x, h, w, u, b = args
+    d = h.shape[1]
+    flip = torch.ones(3 * d, device=x.device)
+    flip[d:2 * d] = -1.0
+    w_ih = (w * flip).t().contiguous()
+    w_hh = (u * flip).t().contiguous()
+    b_ih = (b * flip).contiguous()
+    b_hh = torch.zeros_like(b_ih)
+    return lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +761,8 @@ def main(argv=None):
                     help="also write the result lines as JSON to this file")
     ap.add_argument("--profile", type=int, default=0, metavar="TICKS",
                     help="also profile TICKS query+fold rounds at the end "
-                         "of each serve phase")
+                         "of each serve phase, and TICKS train steps after "
+                         "each train phase")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -515,27 +837,78 @@ def main(argv=None):
         topk_src=stream.src[:16], k=10, oracle_replay=False,
         big_query=1024, probe=1000, profile=args.profile)
 
-    # 6. kernels on the inputs the serve phases handed them
+    # 6-7. train both algorithms at the paper model's widths on wiki-small
+    train_s, val_s, _ = wiki.chronological_split()
+    no_serve = ("link_score",)
+    train_sum = {}
+    _, _, train_sum["train-config-pres"] = train_phase(
+        "train-config-pres", cfg, train_s, val_s, wiki_dst, dev,
+        batch_size=500, n_batches=None,
+        expect=("memory_update_table", "embed_attn"),
+        forbid=("gru_cell",) + no_serve, profile=args.profile)
+    std_counts, std_inputs, train_sum["train-config-std"] = train_phase(
+        "train-config-std", dataclasses.replace(cfg, use_pres=False),
+        train_s, val_s, wiki_dst, dev, batch_size=500, n_batches=None,
+        expect=("gru_cell", "embed_attn"),
+        forbid=("memory_update_table",) + no_serve, profile=args.profile)
+
+    # the same two paths through the training CLI, one epoch each
+    cli = ["--dataset", "wiki-small", "--model", "tgn", "--use-kernels",
+           "--epochs", "1"]
+    train_sum["cli-pres"] = cli_phase(
+        "train-cli-pres", cli + ["--pres"],
+        ("memory_update_table", "embed_attn"), ("gru_cell",) + no_serve)
+    train_sum["cli-std"] = cli_phase(
+        "train-cli-std", cli, ("gru_cell", "embed_attn"),
+        ("memory_update_table",) + no_serve)
+
+    # 8. train both algorithms at the PRODUCTION widths
+    head = stream.slice(0, 41_000)
+    _, _, train_sum["train-production-pres"] = train_phase(
+        "train-production-pres", pcfg, head, None, s_dst, dev,
+        batch_size=1000, n_batches=41,
+        expect=("memory_update_table", "embed_attn"),
+        forbid=("gru_cell",) + no_serve, oracle_steps=3,
+        profile=args.profile)
+    pstd_counts, pstd_inputs, train_sum["train-production-std"] = \
+        train_phase("train-production-std",
+                    dataclasses.replace(pcfg, use_pres=False), head, None,
+                    s_dst, dev, batch_size=1000, n_batches=41,
+                    expect=("gru_cell", "embed_attn"),
+                    forbid=("memory_update_table",) + no_serve,
+                    oracle_steps=3, profile=args.profile)
+
+    # 9. kernels on the inputs their phases handed them
+    captured = {name: {"config": (main_inputs, main_counts),
+                       "production": (prod_inputs, prod_counts)}
+                for name in SERVE_KERNELS}
+    captured["gru_cell"] = {"config": (std_inputs, std_counts),
+                            "production": (pstd_inputs, pstd_counts)}
     rows, prod_rows = [], {}
     for name, spec_ in ops.REGISTRY.items():
-        for phase, inputs in (("config", main_inputs),
-                              ("production", prod_inputs)):
+        for phase, (inputs, counts) in captured[name].items():
             _, a, kw = inputs[name]
-            err = check_kernel(name, a, kw, f"{phase} serve inputs")
+            err = check_kernel(name, a, kw, f"{phase} inputs")
             copies = [x.clone() for x in a]
             ms = time_ms(lambda: ops.dispatch(name, *copies, mode="compiled",
                                               **kw))
             plain_ms = time_ms(lambda: ops.dispatch(name, *copies,
                                                     mode="oracle", **kw))
+            library_ms = None
+            if name == "gru_cell":
+                lib = library_gru_cell(copies)
+                want = ops.dispatch(name, *copies, mode="oracle")
+                lib_err = float((lib() - want).abs().max())
+                require(lib_err <= TOL[name] * max(
+                    1.0, float(want.abs().max())),
+                    f"torch.gru_cell yardstick differs by {lib_err}")
+                library_ms = time_ms(lib)
             b_ms, b_by = bound(name, a)
-            shape = shape_of(name, a)
             row = {"name": name, "route": "cuda", "source": SOURCES[name],
-                   "replaces": spec_.replaces,
-                   "launches": (main_counts if phase == "config"
-                                else prod_counts)[name],
+                   "replaces": spec_.replaces, "launches": counts[name],
                    "max_abs_err": err, "tol": TOL[name], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": None, "shape": shape}
+                   "library_ms": library_ms, "shape": shape_of(name, a)}
             log(f"[kernel:{phase}] {json.dumps(row)}")
             if phase == "config":
                 rows.append(row)
@@ -545,8 +918,8 @@ def main(argv=None):
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": rows, "production": prod_rows},
-            indent=1))
+            {"card": card, "kernels": rows, "production": prod_rows,
+             "train": train_sum}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

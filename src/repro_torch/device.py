@@ -11,7 +11,8 @@ import torch
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """`None` -> cuda (raises RuntimeError when CUDA is unavailable);
-    anything else is taken as given."""
+    anything else is taken as given, "cuda" with the current device's
+    index (tensors made on it report one, and engines compare devices)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -21,4 +22,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

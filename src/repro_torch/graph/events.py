@@ -1,13 +1,16 @@
 """Event-based dynamic graph representation (counterpart of
 `repro/graph/events.py`): `EventBatch` holds one padded temporal batch as
-tensors, `EventStream` the host-side chronological stream as numpy
-arrays, plus the serving replay's arrival-clock helpers (numpy copies)."""
+tensors, `EventStream` the host-side chronological stream as numpy arrays
+(with the chronological split and the temporal-batch carve of training),
+plus the serving replay's arrival-clock helpers (numpy copies)."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +53,35 @@ class EventStream:
     def slice(self, lo: int, hi: int) -> "EventStream":
         return EventStream(self.src[lo:hi], self.dst[lo:hi], self.t[lo:hi],
                            self.feat[lo:hi], self.num_nodes)
+
+    def chronological_split(self, train: float = 0.7, val: float = 0.15):
+        """Paper App. A: split [0, T] chronologically into train/val/test."""
+        n = len(self)
+        i1, i2 = int(n * train), int(n * (train + val))
+        return self.slice(0, i1), self.slice(i1, i2), self.slice(i2, n)
+
+    def num_batches(self, batch_size: int) -> int:
+        return -(-len(self) // batch_size)
+
+    def iter_temporal_batches(self, batch_size: int, device=None):
+        """Carve fixed-size temporal batches, lazily, onto `device` (cuda
+        unless "cpu" is given). The last one is zero-padded and masked, so
+        every batch has the same shapes; the values are the JAX carve's
+        (node ids widened to int64 indices)."""
+        dev = resolve_device(device)
+        for lo in range(0, len(self), batch_size):
+            hi = min(lo + batch_size, len(self))
+            pad = batch_size - (hi - lo)
+            mk = lambda a: (np.concatenate(
+                [a[lo:hi], np.zeros((pad,) + a.shape[1:], a.dtype)])
+                if pad else a[lo:hi])
+            yield EventBatch.from_numpy(
+                mk(self.src), mk(self.dst), mk(self.t), mk(self.feat),
+                np.arange(batch_size) < (hi - lo), dev)
+
+    def temporal_batches(self, batch_size: int, device=None):
+        """K = ceil(|E| / b) temporal batches (the last one padded)."""
+        return list(self.iter_temporal_batches(batch_size, device))
 
     def train_serve_split(self, serve_frac: float = 0.3):
         """Offline-training prefix and online-serving tail (the last

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`, with the
+device code they share in `csrc/*.cuh`).
 
 Each source is compiled by `nvcc` for `sm_90a` into an object file, all
 sources in parallel, and the objects are linked into one shared library
 with a plain C interface, loaded with `ctypes`. The library lives in
 `build/repro_torch/<hash of the sources and flags>/` at the repository
-root, so an edited source rebuilds and an unchanged one loads at once.
+root, so an edited source or header rebuilds and an unchanged tree loads
+at once.
 
 Nothing here runs at import time: the first kernel launch on a CUDA tensor
 triggers `library()`. On a machine without `nvcc` that raises a
@@ -39,6 +41,7 @@ SIGNATURES = {
     "repro_embed_attn": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P,
                          _P, _P, _I, _I, _P, _P],
     "repro_link_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "repro_gru_cell": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -60,8 +63,9 @@ def sources() -> list[pathlib.Path]:
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and every header beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

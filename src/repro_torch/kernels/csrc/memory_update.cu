@@ -25,19 +25,15 @@
 // bounds it. W + U (240 KB at D = 100) exceed one block's shared memory, so
 // the weights are read through L2 with __ldg: each thread owns one output
 // column j, loads W[k, j], W[k, D + j], W[k, 2D + j] once per k and reuses
-// them over the block's MU_ROWS occurrences, whose x and h rows sit in
-// shared memory (a broadcast read per k). fp32 FMA, no tensor cores yet.
+// them over the block's GRU_ROWS occurrences, whose x and h rows sit in
+// shared memory (a broadcast read per k); that GRU body is shared with
+// gru_cell.cu (gru_rows.cuh). fp32 FMA, no tensor cores yet.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gru_rows.cuh"
+
 namespace {
-
-constexpr int MU_ROWS = 8;        // occurrences per block
-constexpr int MU_THREADS = 128;   // threads per block, strided over D columns
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-    return 1.0f / (1.0f + expf(-x));
-}
 
 __global__ void memory_update_rows_kernel(
         const float* __restrict__ table, int64_t n_rows, int d,
@@ -51,82 +47,28 @@ __global__ void memory_update_rows_kernel(
         float* __restrict__ s_meas, float* __restrict__ fused,
         float* __restrict__ delta) {
     extern __shared__ float smem[];
-    float* xs = smem;                     // MU_ROWS x din
-    float* hs = smem + MU_ROWS * din;     // MU_ROWS x d
-    const int row0 = blockIdx.x * MU_ROWS;
-    const int nrows = min(MU_ROWS, m - row0);
-
-    for (int i = threadIdx.x; i < MU_ROWS * din; i += blockDim.x) {
-        const int r = i / din;
-        const int c = i - r * din;
-        xs[i] = (r < nrows) ? x[(int64_t)(row0 + r) * din + c] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < MU_ROWS * d; i += blockDim.x) {
-        const int r = i / d;
-        const int c = i - r * d;
-        float v = 0.0f;
-        if (r < nrows) {
-            const int64_t g = gidx[row0 + r];
-            if (g >= 0 && g < n_rows) v = table[g * d + c];
-        }
-        hs[i] = v;
-    }
+    float* xs = smem;                      // GRU_ROWS x din
+    float* hs = smem + GRU_ROWS * din;     // GRU_ROWS x d
+    const int row0 = blockIdx.x * GRU_ROWS;
+    const int nrows = min(GRU_ROWS, m - row0);
+    gru_stage_rows(x, din, table, n_rows, d, gidx, row0, nrows, xs, hs);
     __syncthreads();
 
     const float gamma = *gamma_ptr;
-    const int64_t d3 = 3 * (int64_t)d;
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
-        float xr[MU_ROWS], xz[MU_ROWS], xn[MU_ROWS];
-        float hr[MU_ROWS], hz[MU_ROWS], hn[MU_ROWS];
+        float sm[GRU_ROWS];
+        gru_column(xs, hs, din, d, w, u, b, j, sm);
 #pragma unroll
-        for (int r = 0; r < MU_ROWS; ++r) {
-            xr[r] = xz[r] = xn[r] = 0.0f;
-            hr[r] = hz[r] = hn[r] = 0.0f;
-        }
-        for (int k = 0; k < din; ++k) {
-            const float* wk = w + k * d3;
-            const float w0 = __ldg(wk + j);
-            const float w1 = __ldg(wk + d + j);
-            const float w2 = __ldg(wk + 2 * d + j);
-#pragma unroll
-            for (int r = 0; r < MU_ROWS; ++r) {
-                const float xv = xs[r * din + k];
-                xr[r] = fmaf(xv, w0, xr[r]);
-                xz[r] = fmaf(xv, w1, xz[r]);
-                xn[r] = fmaf(xv, w2, xn[r]);
-            }
-        }
-        for (int k = 0; k < d; ++k) {
-            const float* uk = u + k * d3;
-            const float u0 = __ldg(uk + j);
-            const float u1 = __ldg(uk + d + j);
-            const float u2 = __ldg(uk + 2 * d + j);
-#pragma unroll
-            for (int r = 0; r < MU_ROWS; ++r) {
-                const float hv = hs[r * d + k];
-                hr[r] = fmaf(hv, u0, hr[r]);
-                hz[r] = fmaf(hv, u1, hz[r]);
-                hn[r] = fmaf(hv, u2, hn[r]);
-            }
-        }
-        const float b0 = b[j];
-        const float b1 = b[d + j];
-        const float b2 = b[2 * d + j];
-#pragma unroll
-        for (int r = 0; r < MU_ROWS; ++r) {
+        for (int r = 0; r < GRU_ROWS; ++r) {
             if (r < nrows) {
                 const float h = hs[r * d + j];
-                const float rg = sigmoid_f((xr[r] + b0) + hr[r]);
-                const float zg = sigmoid_f((xz[r] + b1) + hz[r]);
-                const float ng = tanhf((xn[r] + b2) + rg * hn[r]);
-                const float sm = (1.0f - zg) * h + zg * ng;
                 const int64_t o = (int64_t)(row0 + r) * d + j;
                 const float sc = scale[row0 + r];
                 const float step = fminf(fmaxf(sc * dmean[o], -clip), clip);
                 const float sp = h + step;
-                const float fu = (1.0f - gamma) * sp + gamma * sm;
+                const float fu = (1.0f - gamma) * sp + gamma * sm[r];
                 const float base = innovation ? sp : h;
-                s_meas[o] = sm;
+                s_meas[o] = sm[r];
                 fused[o] = fu;
                 delta[o] = (fu - base) / fmaxf(sc, 1.0f);
             }
@@ -163,15 +105,11 @@ extern "C" int repro_memory_update_table(
         void* stream) {
     if (m <= 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const size_t smem = sizeof(float) * MU_ROWS * (size_t)(din + d);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            memory_update_rows_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int blocks = (m + MU_ROWS - 1) / MU_ROWS;
-    memory_update_rows_kernel<<<blocks, MU_THREADS, smem, st>>>(
+    const size_t smem = sizeof(float) * GRU_ROWS * (size_t)(din + d);
+    cudaError_t e = gru_set_smem(memory_update_rows_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (m + GRU_ROWS - 1) / GRU_ROWS;
+    memory_update_rows_kernel<<<blocks, GRU_THREADS, smem, st>>>(
         static_cast<const float*>(table), n_rows, d,
         static_cast<const float*>(x), din,
         static_cast<const int32_t*>(gidx),

@@ -14,14 +14,23 @@ per-call `mode=` (callers forward `cfg.kernels_mode`) > backend default:
 There is no environment variable and no autotune cache yet. Each kernel
 module keeps an integer launch count, incremented only where it launches
 its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
-them."""
+them.
+
+`dispatch` is the raw route. The named wrappers below it are what the
+model calls: `gru_cell`, `memory_update_table` and `embed_attn` go through
+`autodiff` (the routed forward, a backward through the plain version), so
+training differentiates through the kernels; `link_score` (serving's
+top-k only) is the raw route."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from types import ModuleType
 from typing import Any, Callable
 
+from repro_torch.kernels import autodiff
 from repro_torch.kernels import embed_attn as _ea
+from repro_torch.kernels import gru_cell as _gru
 from repro_torch.kernels import link_score as _ls
 from repro_torch.kernels import memory_update as _mu
 from repro_torch.kernels import ref
@@ -51,6 +60,9 @@ REGISTRY: dict[str, KernelSpec] = {
     "link_score": KernelSpec(
         "link_score", _ls.link_score_cuda, ref.link_score_ref, _ls,
         "src/repro/kernels/link_score.py:40"),
+    "gru_cell": KernelSpec(
+        "gru_cell", _gru.gru_cell_cuda, ref.gru_cell_ref, _gru,
+        "src/repro/kernels/gru_cell.py:34"),
 }
 
 
@@ -95,17 +107,22 @@ def reset_launch_counts() -> None:
         spec.module.launches = 0
 
 
-def memory_update_table(table, last_t, x, gather_idx, write_idx, times,
-                        w, u, b, delta_mean, scale, gamma, **kw):
-    """Fused touched-row pass, in place on table/last_t. Returns (table,
-    last_t, s_meas, fused, delta)."""
-    return dispatch("memory_update_table", table, last_t, x, gather_idx,
-                    write_idx, times, w, u, b, delta_mean, scale, gamma, **kw)
-
-
-def embed_attn(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv, **kw):
-    return dispatch("embed_attn", h_self, tab, idx, dt, valid, tw, tb,
-                    wq, wk, wv, **kw)
+# Differentiable kernels (kernels/autodiff.py): the routed forward, a
+# backward through the plain version.
+#   gru_cell(x, h, w, u, b, *, mode) -> (M, D) new states
+#   memory_update_table(table, last_t, x, gather_idx, write_idx, times, w,
+#       u, b, delta_mean, scale, gamma, *, mode, clip, delta_mode, h=None)
+#       -> (table, last_t, s_meas, fused, delta), in place on table/last_t;
+#       gather from the returned table for the gradient to reach this pass;
+#       h: the rows at gather_idx before the call, if the caller has them
+#   embed_attn(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv, *, mode,
+#       n_heads) -> (R, E); idx and valid take no gradient
+gru_cell = autodiff.oracle_vjp(functools.partial(dispatch, "gru_cell"),
+                               ref.gru_cell_ref)
+memory_update_table = autodiff.table_vjp(
+    functools.partial(dispatch, "memory_update_table"), ref.memory_update_ref)
+embed_attn = autodiff.oracle_vjp(functools.partial(dispatch, "embed_attn"),
+                                 ref.embed_attn_ref, nondiff=(2, 4))
 
 
 def link_score(h_src, h_items, w1, b1, w2, b2, **kw):

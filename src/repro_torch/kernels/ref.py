@@ -16,9 +16,20 @@ def gru_cell_ref(x, h, w, u, b):
     return modules.gru_cell({"w": w, "u": u, "b": b}, x, h)
 
 
+def _clip(a, lo=None, hi=None):
+    """Clamp with jnp.maximum / jnp.minimum's gradient: half to each side
+    on a tie (torch.clamp passes all of it), so the gradients match
+    jax.vjp's where a value sits exactly on a bound."""
+    if lo is not None:
+        a = torch.maximum(a, torch.full_like(a, lo))
+    if hi is not None:
+        a = torch.minimum(a, torch.full_like(a, hi))
+    return a
+
+
 def pres_predict_ref(s_prev, delta_mean, dt, clip=5.0):
     """Eq. 7 extrapolation fill: s_prev + clip(dt * delta_mean)."""
-    return s_prev + torch.clamp(dt[:, None] * delta_mean, -clip, clip)
+    return s_prev + _clip(dt[:, None] * delta_mean, -clip, clip)
 
 
 def pres_filter_ref(s_prev, s_meas, delta_mean, dt, gamma, clip=5.0,
@@ -28,7 +39,7 @@ def pres_filter_ref(s_prev, s_meas, delta_mean, dt, gamma, clip=5.0,
     s_pred = pres_predict_ref(s_prev, delta_mean, dt, clip=clip)
     fused = (1.0 - gamma) * s_pred + gamma * s_meas
     base = s_pred if delta_mode == "innovation" else s_prev
-    delta = (fused - base) / torch.clamp(dt, min=1.0)[:, None]
+    delta = (fused - base) / _clip(dt, lo=1.0)[:, None]
     return fused, delta
 
 
@@ -96,7 +107,9 @@ def embed_attn_ref(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv,
     and run the masked multi-head attention. Returns (R, E) before the
     output projection."""
     r, kk = valid.shape
-    h_nbr = tab[idx.reshape(-1).long()].reshape(r, kk, -1)
+    # index_select: its backward (index_add_) stays fast when many slots
+    # share a row (every invalid slot points at one row of `tab`)
+    h_nbr = tab.index_select(0, idx.reshape(-1).long()).reshape(r, kk, -1)
     t_enc = modules.time_encode({"w": tw, "b": tb}, dt)
     kv = torch.cat([h_nbr, t_enc], dim=-1)
     q = h_self @ wq

@@ -1,0 +1,160 @@
+"""End-to-end MDGNN training entry point (counterpart of
+`repro/launch/train.py`, the paper's experiment loop): Alg. 2 with
+`--pres`, Alg. 1 without.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
+        --model tgn --pres --use-kernels
+
+Each epoch trains over the chronological train split, then evaluates on
+the validation split from the trained state, and prints loss, train AP,
+val AP, val AUC and seconds; `--json-out` writes the config and history.
+
+It keeps the JAX CLI's flags that this path needs. The others raise
+NotImplementedError naming the ROADMAP item that ports them, and so does
+any model configuration outside the ported slices
+(mdgnn.check_supported). It runs on CUDA unless `--device cpu` is given.
+Parameters and negatives are drawn from `--seed` with torch generators,
+not jax.random, so a run is not the JAX run's bit for bit."""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.graph import datasets
+from repro_torch.graph.datasets import SPECS
+from repro_torch.kernels import ops as kops
+from repro_torch.models.mdgnn import (MDGNNConfig, check_supported,
+                                      init_params, init_state)
+from repro_torch.optim import adamw
+from repro_torch.train import loop
+
+# flag -> the ROADMAP item that ports it
+_NOT_YET = {
+    "csv": "Queue 1 item 10 (JODIE csv loading)",
+    "event_store": "Queue 1 item 17 (event store)",
+    "no_dedup_embed": "Queue 1 item 7 and Queue 2 item 6 (dense TGN path, "
+                      "neighbor_attn)",
+    "pipeline_depth": "Queue 1 item 12 and Queue 2 item 5 (pipelined "
+                      "schedule, pres_predict)",
+    "scan_chunk": "Queue 1 item 15 (scan macro-batches)",
+    "n_shards": "Queue 1 item 18 (memory parallelism)",
+    "shard_budget": "Queue 1 item 18 (memory parallelism)",
+    "checkpoint": "Queue 1 item 10 (checkpoint/io.py)",
+    "metrics_out": "Queue 1 item 14 (obs/sink.py)",
+    "trace_dir": "Queue 1 item 14 (obs/trace.py)",
+}
+# flags whose default means "off"
+_OFF = {"pipeline_depth": 0, "scan_chunk": 1, "n_shards": 1}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="wiki-small", choices=list(SPECS))
+    ap.add_argument("--csv", default=None, help="not ported yet (raises)")
+    ap.add_argument("--event-store", default=None,
+                    help="not ported yet (raises)")
+    ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"])
+    ap.add_argument("--pres", action="store_true",
+                    help="Alg. 2 (PRES); without it Alg. 1")
+    ap.add_argument("--beta", type=float, default=0.1)
+    ap.add_argument("--delta-mode", default="transition",
+                    choices=["innovation", "transition"])
+    ap.add_argument("--pres-scale", default="count", choices=["count", "time"],
+                    help="Eq. 7 extrapolation scale ('time' is not ported)")
+    ap.add_argument("--batch-size", type=int, default=500)
+    ap.add_argument("--epochs", type=int, default=5)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--d-mem", type=int, default=100)
+    ap.add_argument("--n-layers", type=int, default=1,
+                    help="embedding depth (hops of temporal attention)")
+    ap.add_argument("--n-heads", type=int, default=2,
+                    help="attention heads in the embedding stack")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-dedup-embed", action="store_true",
+                    help="not ported yet (raises)")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="route the memory step (memory_update_table with "
+                         "--pres, gru_cell without) and the embedding "
+                         "attention (embed_attn) through the CUDA kernels "
+                         "(required by this port)")
+    ap.add_argument("--kernels-mode", default="auto",
+                    choices=["auto", "compiled", "interpret", "oracle"],
+                    help="auto: kernels on CUDA, plain versions on the CPU; "
+                         "oracle pins the plain versions; interpret raises")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="not ported yet (raises unless 0)")
+    ap.add_argument("--scan-chunk", type=int, default=1,
+                    help="not ported yet (raises unless 1)")
+    ap.add_argument("--n-shards", type=int, default=1,
+                    help="not ported yet (raises unless 1)")
+    ap.add_argument("--shard-budget", type=int, default=None,
+                    help="not ported yet (raises)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="not ported yet (raises)")
+    ap.add_argument("--json-out", default=None)
+    ap.add_argument("--metrics-out", default=None,
+                    help="not ported yet (raises)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="not ported yet (raises)")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda (raises without one)")
+    args = ap.parse_args(argv)
+    for flag, item in _NOT_YET.items():
+        if getattr(args, flag) not in (_OFF.get(flag), False):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet; ROADMAP "
+                f"{item} ports it")
+
+    device = resolve_device(args.device)
+    spec = SPECS[args.dataset]
+    stream = datasets.get_dataset(args.dataset, args.seed)
+    dst_range = (spec.n_users, spec.n_users + spec.n_items)
+    train_s, val_s, _ = stream.chronological_split()
+    cfg = MDGNNConfig(
+        variant=args.model, n_nodes=stream.num_nodes, d_edge=stream.feat_dim,
+        d_mem=args.d_mem, d_msg=args.d_mem, d_embed=args.d_mem,
+        n_layers=args.n_layers, n_heads=args.n_heads,
+        use_pres=args.pres, beta=args.beta, delta_mode=args.delta_mode,
+        pres_scale=args.pres_scale, use_kernels=args.use_kernels,
+        kernels_mode=args.kernels_mode)
+    check_supported(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                         device)
+    state = init_state(cfg, device)
+    opt = adamw(args.lr)
+    opt_state = opt.init(params)
+    train_step = loop.make_train_step(cfg, opt)
+    eval_step = loop.make_eval_step(cfg)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    batches = train_s.temporal_batches(args.batch_size, device)
+    val_batches = val_s.temporal_batches(args.batch_size, device)
+    print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
+          f"default={kops.resolve_mode('auto', device)}")
+    print(f"[train] {args.model}{'-PRES' if args.pres else ''} on "
+          f"{args.dataset}: {len(train_s)} events, K={len(batches)} batches "
+          f"of b={args.batch_size}")
+    history = []
+    for epoch in range(args.epochs):
+        params, opt_state, state, res = loop.run_epoch(
+            params, opt_state, state, batches, cfg, train_step, gen,
+            dst_range)
+        _, vap, vauc = loop.evaluate(params, state, val_batches, cfg,
+                                     eval_step, gen, dst_range)
+        history.append({"epoch": epoch, "train_ap": res.ap, "loss": res.loss,
+                        "seconds": res.seconds, "val_ap": vap,
+                        "val_auc": vauc})
+        print(f"  epoch {epoch}: loss={res.loss:.4f} train_ap={res.ap:.4f} "
+              f"val_ap={vap:.4f} val_auc={vauc:.4f} ({res.seconds:.1f}s)")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump({"config": dataclasses.asdict(cfg), "history": history},
+                      f, indent=2, default=str)
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -34,7 +34,10 @@ def _tgn_apply_dedup(params, cfg, state, nodes, t_query):
     n_layers = cfg.n_layers
     hops = batching.expand_frontiers_unique(state["neighbors"], nodes,
                                             t_query, n_layers, cfg.n_nodes)
-    h = [mem.mem[hop["nodes"]] for hop in hops]
+    # index_select, not mem[idx]: the backward of an indexing gather
+    # accumulates duplicates one warp per index, and every padded slot of
+    # a unique table is node 0; index_select's backward is index_add_
+    h = [mem.mem.index_select(0, hop["nodes"]) for hop in hops]
     for l in range(1, n_layers + 1):
         lp = params["emb"][f"l{l - 1}"]
         h = [_tgn_layer_compact(params, lp, h[d], h[d + 1], hops[d]["t"],

@@ -1,11 +1,12 @@
 """MDGNN engine, TGN subset (counterpart of `repro/models/mdgnn.py`):
 configuration, parameters, runtime state, the MESSAGE stage and its
-per-occurrence bookkeeping, the embedding entry point and the link
-decoder.
+per-occurrence bookkeeping, the batch-parallel memory update, the
+embedding entry point and the link decoder.
 
-Only the configuration the serving slice implements is accepted
-(`check_supported`); every other option raises NotImplementedError naming
-the ROADMAP item that ports it."""
+Only the configurations the ported slices implement are accepted
+(`check_supported`: TGN with the GRU cell and the kernels, PRES on or
+off); every other option raises NotImplementedError naming the ROADMAP
+item that ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +18,7 @@ from repro_torch.core import batching
 from repro_torch.core.pres import PresState
 from repro_torch.device import resolve_device
 from repro_torch.graph.events import EventBatch
+from repro_torch.kernels import ops as kops
 from repro_torch.models import embeddings, modules
 from repro_torch.models.modules import MemoryState
 
@@ -60,7 +62,6 @@ class MDGNNConfig:
 # field -> (the value this slice implements, the ROADMAP item porting others)
 _SUPPORTED = {
     "variant": ("tgn", "Queue 1 item 11 (rest of the MDGNN model family)"),
-    "use_pres": (True, "Queue 1 item 11 and Queue 2 item 5 (gru_cell)"),
     "memory_cell": ("gru", "Queue 1 item 11 (the rnn cell)"),
     "aggregator": ("last", "Queue 1 item 11 (aggregator='mean')"),
     "pres_scale": ("count", "Queue 1 item 11 (pres_scale='time')"),
@@ -161,6 +162,18 @@ def init_state(cfg: MDGNNConfig, device=None) -> dict:
     }
 
 
+def clone_state(state) -> dict:
+    """A copy of the runtime state that shares no storage with it."""
+    mem, pr = state["memory"], state["pres"]
+    return {
+        "memory": MemoryState(mem=mem.mem.detach().clone(),
+                              last_update=mem.last_update.detach().clone()),
+        "neighbors": {k: v.clone() for k, v in state["neighbors"].items()},
+        "pres": PresState(n=pr.n.clone(), xi=pr.xi.clone(),
+                          psi=pr.psi.clone()),
+    }
+
+
 # ---------------------------------------------------------------------------
 # MESSAGE + per-occurrence bookkeeping
 # ---------------------------------------------------------------------------
@@ -203,12 +216,38 @@ def _last_occurrence_flags(nodes, times, mask):
 
 def memory_inputs(params, cfg: MDGNNConfig, mem: MemoryState,
                   batch: EventBatch):
-    """MESSAGE stage + selection flags for the fused memory update:
-    (nodes, times, msgs, mask, selected). Unlike the JAX version it does
-    not gather the previous rows: the memory_update_table kernel does."""
+    """MESSAGE stage + per-occurrence bookkeeping shared by the cell-based
+    memory update below and the fused-kernel path
+    (train/loop.py::_fused_memory_update): (nodes, times, msgs, mask,
+    selected)."""
     nodes, times, msgs, mask = compute_messages(params, cfg, mem, batch)
     selected = _last_occurrence_flags(nodes, times, mask)
     return nodes, times, msgs, mask, selected
+
+
+def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
+                  batch: EventBatch):
+    """Batch-parallel memory transition (Alg. 1): the `gru_cell` kernel
+    runs on the 2b endpoint occurrences and only each node's selected
+    (chronologically last) occurrence is written back, IN PLACE on `mem`.
+    Autograd records the write, so the new rows pass their gradient on to
+    whatever later reads `mem.mem`. Finding the selected occurrences is one
+    host sync on CUDA. Returns (mem, info) with info carrying the rows the
+    coherence loss needs."""
+    nodes, times, msgs, mask, selected = memory_inputs(params, cfg, mem,
+                                                       batch)
+    h_prev = mem.mem[nodes]
+    p = params["mem"]
+    new_rows = kops.gru_cell(msgs, h_prev, p["w"], p["u"], p["b"],
+                             mode=cfg.kernels_mode)
+    keep = torch.nonzero(selected)[:, 0]
+    rows = nodes.index_select(0, keep)
+    mem.mem[rows] = new_rows.index_select(0, keep)
+    mem.last_update[rows] = times.index_select(0, keep)
+    info = {"nodes": nodes, "selected": selected, "mask": mask,
+            "s_prev": h_prev, "s_meas": new_rows, "t_now": times,
+            "msgs": msgs}
+    return mem, info
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,9 @@ def message(params, s_self, s_other, e_feat, t_enc):
 
 
 def gru_cell(params, x, h):
-    """x: (B, d_in), h: (B, d_hidden) -> new h. The plain cell: the serving
-    path runs it inside the memory_update_table kernel, whose plain version
-    (kernels/ref.py) calls this."""
+    """x: (B, d_in), h: (B, d_hidden) -> new h. The plain cell: it is the
+    plain version of the gru_cell kernel and, inside memory_update_table's,
+    of the fused PRES pass (kernels/ref.py)."""
     gx = x @ params["w"] + params["b"]
     gh = h @ params["u"]
     d = h.shape[-1]

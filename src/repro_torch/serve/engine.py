@@ -61,7 +61,7 @@ class ServeEngine:
     @torch.no_grad()
     def _ingest_body(self, batch: EventBatch) -> None:
         with torch.profiler.record_function("serve_ingest"):
-            info, _, delta = loop_lib.memory_and_pres(
+            _, info, _, delta = loop_lib.memory_and_pres(
                 self.params, self.cfg, self.state, batch)
             aux = {"delta": delta, "info_nodes": info["nodes"],
                    "info_selected": info["selected"],

@@ -1,20 +1,39 @@
-"""Memory maintenance shared by training and serving, serve subset
-(counterpart of `repro/train/loop.py`: `_pres_scale_and_ids`,
-`_fused_memory_update`, `memory_and_pres` (fused branch) and
-`maintain_state`). Training itself is a later slice (ROADMAP Queue 1
-item 9).
+"""MDGNN training loop, lag-one (counterpart of `repro/train/loop.py`):
+Alg. 1 (standard) and Alg. 2 (PRES). Temporal batch B_{i-1} updates the
+memory, then the embeddings predict batch B_i against sampled negatives.
+With PRES the memory measurement is fused with the GMM prediction and the
+coherence smoothing term (Eq. 10) joins the loss. The memory maintenance
+here (`memory_and_pres`, `maintain_state`) is shared with serving.
 
-All state updates are IN PLACE on the state dict's tensors, where the JAX
-engine donates and aliases its buffers."""
+Kernel routing (cfg.use_kernels, required by mdgnn.check_supported):
+PRES runs the whole memory step as one `memory_update_table` call; without
+PRES the memory cell is the `gru_cell` kernel; every embedding layer is
+`embed_attn`. Each is differentiable (kernels/autodiff.py): the kernel
+forward, a backward through its plain version.
+
+State updates are IN PLACE on the state dict's tensors where the JAX
+engine donates and aliases its buffers, and the state is detached after
+every step (the JAX step's stop_gradient)."""
 from __future__ import annotations
 
-import torch
+import dataclasses
+import time
 
-from repro_torch.core import batching, pres
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import batching, coherence, pres
 from repro_torch.graph.events import EventBatch
+from repro_torch.graph.negatives import sample_negatives
+from repro_torch.kernels import autodiff
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
+from repro_torch.models.modules import MemoryState
+from repro_torch.optim.optimizers import apply_updates
+from repro_torch.utils import metrics as metrics_lib
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 def _pres_scale_and_ids(cfg: MDGNNConfig, info):
@@ -37,10 +56,14 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     Occurrences go to the kernel in mdgnn.occurrence_order (its two-phase
     design does not need that order, but the plain version and the JAX
     kernel see the same layout) and the (M, D) outputs are permuted back to
-    batch order. Returns (info, fused, delta)."""
+    batch order. Returns (mem, info, fused, delta); mem holds the tensors
+    the kernel returned, which carry the gradient of the written rows.
+    When autograd records (the train step), info["s_prev"] holds the rows
+    before the write (zeros where masked), the same rows the kernel's
+    Function saves for its backward."""
     mem = state["memory"]
-    nodes, times, msgs, mask, selected = mdgnn.memory_inputs(
-        params, cfg, mem, batch)
+    nodes, times, msgs, mask, selected = mdgnn.memory_inputs(params, cfg,
+                                                             mem, batch)
     info = {"nodes": nodes, "selected": selected, "mask": mask,
             "t_now": times, "msgs": msgs}
     scale, pres_ids = _pres_scale_and_ids(cfg, info)
@@ -53,31 +76,197 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     # index N = masked-write dump, N + 1 = zeros masked-read source
     gidx = torch.where(mask, nodes, torch.full_like(nodes, n + 1))[order]
     widx = torch.where(selected, nodes, torch.full_like(nodes, n))[order]
-    _, _, s_meas, fused, delta = kops.memory_update_table(
+    h = None
+    if torch.is_grad_enabled():
+        h = autodiff.gather_rows(mem.mem, gidx)
+        info["s_prev"] = h[inv]
+    table, last_t, s_meas, fused, delta = kops.memory_update_table(
         mem.mem, mem.last_update, msgs[order].contiguous(),
         gidx.to(torch.int32), widx.to(torch.int32), times[order],
         params["mem"]["w"], params["mem"]["u"], params["mem"]["b"],
         dmean[order].contiguous(), scale[order], gamma,
-        clip=cfg.pres_clip, delta_mode=cfg.delta_mode, mode=cfg.kernels_mode)
+        clip=cfg.pres_clip, delta_mode=cfg.delta_mode, mode=cfg.kernels_mode,
+        h=h)
     info["s_meas"] = s_meas[inv]
-    return info, fused[inv], delta[inv]
+    return MemoryState(mem=table, last_update=last_t), info, fused[inv], \
+        delta[inv]
 
 
 def memory_and_pres(params, cfg: MDGNNConfig, state, batch: EventBatch):
-    """MEMORY stage + PRES fusion (the fused-kernel branch, the only one the
-    supported configuration takes). Returns (info, fused_rows, deltas)."""
+    """MEMORY stage + PRES fusion, shared by the train, eval and serve
+    steps. With PRES: the fused `memory_update_table` pass. Without: the
+    cell-based `mdgnn.memory_update` through the `gru_cell` kernel; the
+    fused rows are then the measurements and the deltas are zero.
+    Returns (mem, info, fused_rows, deltas)."""
     mdgnn.check_supported(cfg)
-    return _fused_memory_update(params, cfg, state, batch)
+    if cfg.use_pres:
+        return _fused_memory_update(params, cfg, state, batch)
+    mem2, info = mdgnn.memory_update(params, cfg, state["memory"], batch)
+    fused = info["s_meas"]
+    return mem2, info, fused, torch.zeros_like(fused)
+
+
+def endpoint_logits(params, cfg: MDGNNConfig, state2, pos: EventBatch,
+                    neg: EventBatch):
+    """Link logits of a positive and a negative batch, from ONE embedding
+    call over the four endpoint sets."""
+    h = mdgnn.embed_nodes(params, cfg, state2,
+                          torch.cat([pos.src, pos.dst, neg.src, neg.dst]),
+                          torch.cat([pos.t, pos.t, neg.t, neg.t]))
+    b = pos.src.shape[0]
+    logit_p = mdgnn.link_logits(params, h[:b], h[b:2 * b])
+    logit_n = mdgnn.link_logits(params, h[2 * b:3 * b], h[3 * b:])
+    return logit_p, logit_n
+
+
+def link_bce(logit_p, logit_n, pos_mask, neg_mask):
+    """Masked mean binary cross-entropy over positive/negative logits."""
+    bce_p = torch.sum(F.softplus(-logit_p) * pos_mask)
+    bce_n = torch.sum(F.softplus(logit_n) * neg_mask)
+    denom = torch.clamp(pos_mask.sum() + neg_mask.sum(), min=1.0)
+    return (bce_p + bce_n) / denom
 
 
 def maintain_state(cfg: MDGNNConfig, state, aux, batch: EventBatch,
                    track_deltas: bool = True) -> None:
-    """Post-fold state maintenance, in place: the PRES tracker update (when
-    `track_deltas`; the JAX engine masks `use_pres` for the same effect) and
-    the neighbour-ring append."""
-    if track_deltas:
+    """Post-step state maintenance, in place: detach the memory (the JAX
+    step's stop_gradient), update the PRES trackers (with PRES and
+    `track_deltas`) and append the batch to the neighbour rings."""
+    state["memory"].mem.detach_()
+    state["memory"].last_update.detach_()
+    if track_deltas and cfg.use_pres:
         nodes = aux["info_nodes"]
         pres.update_trackers(state["pres"], nodes, aux["delta"],
                              torch.zeros_like(nodes),
                              aux["info_selected"] & aux["info_mask"])
     batching.update_neighbors(state["neighbors"], batch)
+
+
+def make_train_step(cfg: MDGNNConfig, opt):
+    """The lag-one train step (JAX `make_step_body` / `make_train_step`):
+    train_step(params, opt_state, state, prev_batch, pos, neg) ->
+    (params, opt_state, state, metrics).
+
+    The loss is differentiated with torch.autograd with respect to every
+    parameter (zeros for the ones it does not reach, as jax.grad gives).
+    Parameters and the optimizer state are updated in place, and so is the
+    state: the caller keeps using the returned objects, as the JAX caller
+    of its donated step does."""
+    use_smooth = (cfg.use_smoothing if cfg.use_smoothing is not None
+                  else cfg.use_pres)
+
+    def train_step(params, opt_state, state, prev_batch, pos, neg):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        mem2, info, fused, delta = memory_and_pres(params, cfg, state,
+                                                   prev_batch)
+        state2 = dict(state, memory=mem2)
+        logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
+        loss = link_bce(logit_p, logit_n, pos.mask, neg.mask)
+        pen = coherence.coherence_penalty(
+            info["s_prev"], fused, mask=info["selected"] & info["mask"])
+        if use_smooth and cfg.beta:
+            loss = loss + cfg.beta * pen
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        updates, opt_state = opt.update(tree_unflatten(params, grads),
+                                        opt_state, params)
+        apply_updates(params, updates)
+        aux = {"delta": delta.detach(), "info_nodes": info["nodes"],
+               "info_selected": info["selected"], "info_mask": info["mask"]}
+        maintain_state(cfg, state2, aux, prev_batch)
+        metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
+                   "logit_p": logit_p.detach(), "logit_n": logit_n.detach()}
+        return params, opt_state, state2, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: MDGNNConfig):
+    """eval_step(params, state, prev_batch, pos, neg) -> (state, logit_p,
+    logit_n): the memory update and the neighbour rings, in place, then the
+    logits. The PRES trackers are not updated, as in the JAX eval step."""
+
+    @torch.no_grad()
+    def eval_step(params, state, prev_batch, pos, neg):
+        mem2, _, _, _ = memory_and_pres(params, cfg, state, prev_batch)
+        state2 = dict(state, memory=mem2)
+        batching.update_neighbors(state2["neighbors"], prev_batch)
+        logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
+        return state2, logit_p, logit_n
+
+    return eval_step
+
+
+@dataclasses.dataclass
+class EpochResult:
+    ap: float
+    loss: float
+    seconds: float
+
+
+def _negatives(negatives, generator, batch, dst_range):
+    if negatives is None:
+        return sample_negatives(generator, batch, *dst_range)
+    try:
+        return next(negatives)
+    except StopIteration:
+        raise ValueError("fewer injected negative batches than steps") \
+            from None
+
+
+def _logits_ap(pos_all, neg_all):
+    """AP over the concatenated logits (padding rows included, as the JAX
+    loop does), fetched in one copy."""
+    pos = torch.cat(pos_all).cpu().numpy()
+    neg = torch.cat(neg_all).cpu().numpy()
+    return pos, neg, metrics_lib.average_precision(pos, neg)
+
+
+def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
+              train_step, generator, dst_range, negatives=None):
+    """One training epoch over the temporal batches (lag-one).
+
+    Negatives are drawn from `generator` unless `negatives` gives one
+    batch per step (the parity tests inject the JAX package's draws).
+    Losses and logits stay on the device until the epoch ends, so the loop
+    itself does not wait for the device."""
+    t0 = time.perf_counter()
+    losses, pos_all, neg_all = [], [], []
+    negs = None if negatives is None else iter(negatives)
+    it = iter(batches)
+    prev_batch = next(it)
+    for batch in it:
+        neg = _negatives(negs, generator, batch, dst_range)
+        params, opt_state, state, m = train_step(params, opt_state, state,
+                                                 prev_batch, batch, neg)
+        losses.append(m["loss"])
+        pos_all.append(m["logit_p"])
+        neg_all.append(m["logit_n"])
+        prev_batch = batch
+    loss = float(np.mean(torch.stack(losses).double().cpu().numpy()))
+    _, _, ap = _logits_ap(pos_all, neg_all)
+    return params, opt_state, state, EpochResult(
+        ap, loss, time.perf_counter() - t0)
+
+
+def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
+             dst_range, negatives=None):
+    """Evaluation pass on a copy of `state` (the caller's state is left as
+    it was, as with the JAX version's functional state). Returns
+    (final eval state, AP, AUC)."""
+    state = mdgnn.clone_state(state)
+    pos_all, neg_all = [], []
+    negs = None if negatives is None else iter(negatives)
+    it = iter(batches)
+    prev_batch = next(it)
+    for batch in it:
+        neg = _negatives(negs, generator, batch, dst_range)
+        state, lp, ln = eval_step(params, state, prev_batch, batch, neg)
+        pos_all.append(lp)
+        neg_all.append(ln)
+        prev_batch = batch
+    pos, neg, ap = _logits_ap(pos_all, neg_all)
+    return state, ap, metrics_lib.roc_auc(pos, neg)

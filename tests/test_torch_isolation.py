@@ -1,7 +1,7 @@
 """The port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports JAX or the JAX package, the serving modules import
-with JAX blocked, and an entry point given no device on a machine without
-CUDA raises instead of running on the CPU."""
+`chip_smoke.py` imports JAX or the JAX package, the serving and training
+modules import with JAX blocked, and an entry point given no device on a
+machine without CUDA raises instead of running on the CPU."""
 from __future__ import annotations
 
 import ast
@@ -44,7 +44,10 @@ def test_serving_imports_with_jax_blocked():
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
-            "import repro_torch.kernels.ops\n"
+            "import repro_torch.kernels.ops, repro_torch.kernels.autodiff\n"
+            "import repro_torch.launch.train, repro_torch.train.loop\n"
+            "import repro_torch.optim, repro_torch.graph.negatives\n"
+            "import repro_torch.core.coherence\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -6,7 +6,12 @@ against the JAX Pallas kernel in interpret mode and against the JAX jnp
 oracle (jitted, as the JAX engine runs it) on the same numpy inputs, at
 1e-5 absolute in fp32 (matrix products summed in another order). The CUDA
 kernels themselves are held against these plain versions on the card by
-`chip_smoke.py` (edge shapes, then the serve path's own inputs)."""
+`chip_smoke.py` (edge shapes, then the serve and train paths' own inputs).
+
+The gradients of the training path's kernels (the autograd Functions of
+`repro_torch.kernels.autodiff`) are held against `jax.vjp` of the JAX ref
+on the same inputs and cotangents, each input at 1e-5 relative to its
+largest gradient (never absolute: those reach tens)."""
 from __future__ import annotations
 
 import functools
@@ -19,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import embed_attn as jea
+from repro.kernels import gru_cell as jgru
 from repro.kernels import link_score as jls
 from repro.kernels import memory_update as jmu
 from repro.kernels import ref as jref
@@ -158,6 +164,121 @@ def test_link_score_matches_jax(case):
     assert got.shape == (case[1], case[2])
     np.testing.assert_allclose(got, np.asarray(want_pl), atol=TOL, rtol=0)
     np.testing.assert_allclose(got, np.asarray(want_ref), atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# gru_cell
+# ---------------------------------------------------------------------------
+
+# (name, M, D, Din)
+GRU_CASES = [("m1", 1, 8, 8), ("ragged", 37, 16, 24), ("d100", 130, 100, 100)]
+
+
+def _gru_inputs(case, seed=3):
+    _, m, d, din = case
+    rng = np.random.default_rng(seed)
+    return [_f(rng, m, din), _f(rng, m, d, scale=0.5),
+            _f(rng, din, 3 * d, scale=din ** -0.5),
+            _f(rng, d, 3 * d, scale=d ** -0.5), _f(rng, 3 * d, scale=0.1)]
+
+
+@pytest.mark.parametrize("case", GRU_CASES, ids=[c[0] for c in GRU_CASES])
+def test_gru_cell_matches_jax(case):
+    args = _gru_inputs(case)
+    jargs = [jnp.asarray(a) for a in args]
+    want_pl = jgru._gru_cell_pallas(*jargs, interpret=True)
+    want_ref = jax.jit(jref.gru_cell_ref)(*jargs)
+    got = ops.gru_cell(*[_t(a) for a in args]).numpy()
+    assert got.shape == (case[1], case[2])
+    np.testing.assert_allclose(got, np.asarray(want_pl), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(want_ref), atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd Functions against jax.vjp of the JAX ref
+# ---------------------------------------------------------------------------
+
+
+def _grad_close(got, want, name):
+    want = np.asarray(want, np.float64)
+    lim = 1e-5 * max(1.0, float(np.abs(want).max(initial=0.0)))
+    err = float(np.abs(got.numpy().astype(np.float64) - want)
+                .max(initial=0.0))
+    assert err <= lim, f"d{name}: max |port - jax| = {err:.3g} > {lim:.3g}"
+
+
+def _jax_grads(fn, args, cotangents):
+    """jax.vjp of `fn` at `args`, jitted as the JAX engine runs it (eager
+    JAX rounds the time-encoding angle twice, jitted XLA once: ROADMAP
+    Queue 3 P1)."""
+    def vjp(args, cts):
+        return jax.vjp(fn, *args)[1](cts)
+    return jax.jit(vjp)([jnp.asarray(a) for a in args], cotangents)
+
+
+def _port_grads(fn, args, diff, cotangents, clone=()):
+    """Gradients of sum(out * cotangent) with respect to args[diff]; the
+    inputs at `clone` enter as clones of their leaves (they are written in
+    place)."""
+    leaves = [_t(a) for a in args]
+    for i in diff:
+        leaves[i].requires_grad_(True)
+    call = [x.clone() if i in clone else x for i, x in enumerate(leaves)]
+    outs = fn(*call)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(list(outs), [_t(c) for c in cotangents])
+    return {i: leaves[i].grad for i in diff}
+
+
+@pytest.mark.parametrize("case", GRU_CASES[1:], ids=[c[0] for c in
+                                                     GRU_CASES[1:]])
+def test_gru_cell_grads_match_jax(case):
+    args = _gru_inputs(case)
+    ct = _f(np.random.default_rng(9), case[1], case[2])
+    want = _jax_grads(jref.gru_cell_ref, args, jnp.asarray(ct))
+    got = _port_grads(ops.gru_cell, args, range(5), [ct])
+    for i, name in enumerate(("x", "h", "w", "u", "b")):
+        _grad_close(got[i], want[i], name)
+
+
+# float inputs of memory_update_table: the indices (3, 4) take no gradient
+MU_DIFF = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11)
+MU_NAMES = ("table", "last_t", "x", "gather_idx", "write_idx", "times", "w",
+            "u", "b", "delta_mean", "scale", "gamma")
+
+
+@pytest.mark.parametrize("case", [MU_CASES[0], MU_CASES[1], MU_CASES[4]],
+                         ids=["block_edge", "masked", "din_ne_d"])
+def test_memory_update_table_grads_match_jax(case):
+    """Cotangents on every output, the written table rows included: the
+    gradient of W and U then needs the rows as they were BEFORE the
+    in-place write, and of `fused` the written rows' cotangent."""
+    args = _mu_inputs(case)
+    kw = dict(clip=1.0, delta_mode="transition")
+    m, n, d = case[1], case[2], case[3]
+    rng = np.random.default_rng(11)
+    cts = [_f(rng, n, d), _f(rng, n), _f(rng, m, d), _f(rng, m, d),
+           _f(rng, m, d)]
+    want = _jax_grads(functools.partial(jref.memory_update_table_ref, **kw),
+                      args, tuple(jnp.asarray(c) for c in cts))
+    got = _port_grads(functools.partial(ops.memory_update_table, **kw), args,
+                      MU_DIFF, cts, clone=(0, 1))
+    for i in MU_DIFF:
+        _grad_close(got[i], want[i], MU_NAMES[i])
+
+
+@pytest.mark.parametrize("case", EA_CASES[1:], ids=[c[0] for c in
+                                                    EA_CASES[1:]])
+def test_embed_attn_grads_match_jax(case):
+    args, heads, _ = _ea_inputs(case)
+    ct = _f(np.random.default_rng(12), args[0].shape[0], args[7].shape[1])
+    diff = (0, 1, 3, 5, 6, 7, 8, 9)             # idx (2), valid (4): none
+    want = _jax_grads(functools.partial(jref.embed_attn_ref, n_heads=heads),
+                      args, jnp.asarray(ct))
+    got = _port_grads(functools.partial(ops.embed_attn, n_heads=heads), args,
+                      diff, [ct])
+    for i in diff:
+        _grad_close(got[i], want[i], f"arg{i}")
 
 
 # ---------------------------------------------------------------------------

@@ -192,7 +192,7 @@ def test_stream_chunk_byte_identical(lo, hi):
 
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
-    for change in (dict(variant="jodie"), dict(use_pres=False),
+    for change in (dict(variant="jodie"), dict(memory_cell="rnn"),
                    dict(dedup_embed=False), dict(n_shards=2),
                    dict(use_kernels=False), dict(pipeline_depth=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
