@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out FILE] [--profile TICKS]
+    python3 chip_smoke.py [--out FILE] [--profile TICKS] [--only PHASES]
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -10,36 +10,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc.
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
-   large time gaps).
-4. serve at the paper model's widths (tgn_pres CONFIG: d=100, d_time=32,
-   K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay over the
-   serve tail with recommend_topk. The same replay then runs with
-   kernels_mode="oracle" and the states, query scores and top-k are
+   large time gaps, D % 4 != 0, K = 1, the K and E limits).
+4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
+   d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
+   over the serve tail with recommend_topk. The same replay then runs
+   with kernels_mode="oracle" and the states, query scores and top-k are
    compared.
-5. serve at the PRODUCTION widths (d=128, d_time=64, K=16, 2 layers) on the
-   first events of the 120,000-node stream-small graph, with a comparison
-   of queries and top-k against the plain path.
-6. train-config-pres: Alg. 2 (PRES) at CONFIG widths on wiki-small, one
-   epoch (27 lag-one steps at b=500) through loop.run_epoch, then
-   loop.evaluate over the validation split; then the same epoch from the
-   same start and negatives with kernels_mode="oracle", compared.
-7. train-config-std: the same for Alg. 1 (PRES off, the gru_cell kernel);
-   then both algorithms for one epoch through the training CLI
-   (`python -m repro_torch.launch.train`, its default device).
-8. train-production: 40 steps each of Alg. 2 and Alg. 1 at PRODUCTION
-   widths on the first 41,000 stream-small events (b=1000), the first 3
-   steps' losses compared with the plain path; step time, events/s and
-   peak device memory.
+5. serve-production at the PRODUCTION widths (d=128, d_time=64, K=16, 2
+   layers) on the first events of the 120,000-node stream-small graph,
+   with a comparison of queries and top-k against the plain path.
+   serve-config-apan / serve-production-apan: the same for APAN (mailbox
+   attention through neighbor_attn).
+6. train-config-pres / -std: Alg. 2 (PRES) and Alg. 1 (the gru_cell
+   kernel) at CONFIG widths on wiki-small, one epoch (27 lag-one steps at
+   b=500) through the epoch loop, then loop.evaluate over the validation
+   split; then the same epoch from the same start and negatives with
+   kernels_mode="oracle", compared free-running and step by step.
+   train-config-pipe (the pipelined schedule at depth 1, then at depth 2,
+   pres_predict on every step), -dense (TGN's dense expansion, neighbor_attn) and -apan
+   (APAN) the same.
+7. cli: both algorithms for one epoch through the training CLI
+   (`python -m repro_torch.launch.train`, its default device); cli-new:
+   the CLI with --pipeline-depth 2, --no-dedup-embed and --model apan.
+8. train-production-pres / -std / -pipe / -dense / -apan: 40 steps at
+   PRODUCTION widths on the first 41,000 stream-small events (b=1000),
+   the first 3 steps' losses compared with the plain path; step time,
+   events/s and peak device memory.
 9. kernels: each kernel and its plain version timed (CUDA events, median)
    on the largest inputs it received in the phase that captured them (the
    serve phases' probe after their counters were read; gru_cell during
-   the Alg. 1 train phases), compared there, set beside the card's bound
-   for that work and, where one PyTorch call computes the same function,
-   beside that call's time.
+   the Alg. 1 train phases; pres_predict and neighbor_attn in a probe of
+   the pipelined and dense train phases' path on their trained state),
+   compared there, set beside the card's bound for that work and, where
+   one PyTorch call computes the same function, beside that call's time.
 
-Phases 4-8 each name the kernels their path must launch and those it must
-not: the launch counters are zeroed just before the phase drives its path
-and read just after.
+Every serve and train phase names the kernels its path must launch and
+those it must not: the launch counters are zeroed just before the phase
+drives its path and read just after. `--only` runs some phases (the
+with no arguments it runs them all).
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}."""
@@ -62,16 +70,21 @@ PEAK_FP32 = 67e12
 # each output: |kernel - plain| <= TOL * max(1, max|that plain output|), the
 # fp32 sums running in another order; the outputs listed in EXACT (by
 # position) are copies, not sums, and must be equal (memory_update_table's
-# last_t holds the event times it scatters)
+# last_t holds the event times it scatters; pres_predict's one multiply,
+# clamp and add round as the plain version's separate kernels do, so its
+# output is held exactly too)
 TOL = {"memory_update_table": 1e-5, "embed_attn": 1e-4, "link_score": 1e-4,
-       "gru_cell": 1e-5}
-EXACT = {"memory_update_table": (1,)}
+       "gru_cell": 1e-5, "pres_predict": 0.0, "neighbor_attn": 1e-4}
+EXACT = {"memory_update_table": (1,), "pres_predict": (0,)}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"memory_update_table": CSRC + "memory_update.cu",
            "embed_attn": CSRC + "embed_attn.cu",
            "link_score": CSRC + "link_score.cu",
-           "gru_cell": CSRC + "gru_cell.cu"}
+           "gru_cell": CSRC + "gru_cell.cu",
+           "pres_predict": CSRC + "pres_predict.cu",
+           "neighbor_attn": CSRC + "neighbor_attn.cu"}
 SERVE_KERNELS = ("memory_update_table", "embed_attn", "link_score")
+APAN_SERVE_KERNELS = ("memory_update_table", "neighbor_attn", "link_score")
 # training against the plain route. Per step, from the same state: loss,
 # logits and memory table within fp32 sums in another order. The first
 # moments (0.1 x the gradients) are held at 1e-2 of their largest entry as
@@ -176,6 +189,20 @@ def work(name, args):
         nbytes = (m * (din + 2 * d) + w.numel() + u.numel() + b.numel()) * f
         flops = m * (2 * 3 * d * (din + d) + 20 * d)
         return nbytes, flops
+    if name == "pres_predict":
+        s_prev, _, _ = args
+        m, d = s_prev.shape
+        return (3 * m * d + m) * f, 4 * m * d   # mul, max, min, add
+    if name == "neighbor_attn":
+        # the rows with a valid slot read q, and the valid slots their k
+        # and v rows (2 FLOPs an element for the score, 2 for the sum)
+        q, k, _, valid = args
+        m, e = q.shape
+        kk = k.shape[1]
+        live = int(valid.any(1).sum())
+        nv = int(valid.sum())
+        nbytes = (live * e + 2 * nv * e + m * e) * f + m * kk
+        return nbytes, nv * (4 * e + 8)
     raise SmokeFailure(f"no work count for kernel {name!r}")
 
 
@@ -187,6 +214,11 @@ def shape_of(name, a):
                 f"E={a[7].shape[1]}")
     if name == "gru_cell":
         return f"M={a[0].shape[0]} D={a[1].shape[1]} Din={a[0].shape[1]}"
+    if name == "pres_predict":
+        return f"M={a[0].shape[0]} D={a[0].shape[1]}"
+    if name == "neighbor_attn":
+        return (f"M={a[0].shape[0]} K={a[1].shape[1]} E={a[0].shape[1]} "
+                f"valid={float(a[3].float().mean()):.3f}")
     return f"B={a[0].shape[0]} I={a[1].shape[0]} D={a[0].shape[1]}"
 
 
@@ -207,10 +239,12 @@ def bound(name, args):
 
 
 def run_pair(name, args, kw):
-    """Kernel and plain version on private copies of the inputs (the
-    memory-table pass writes its table in place)."""
+    """Kernel and plain version on the inputs, private copies for the
+    memory-table pass (it writes its table in place); the others get the
+    tensors as given (an edge case's misaligned view stays misaligned)."""
     from repro_torch.kernels import ops
-    fresh = lambda: [a.clone() for a in args]
+    fresh = lambda: ([a.clone() for a in args]
+                     if name == "memory_update_table" else list(args))
     got = ops.dispatch(name, *fresh(), mode="compiled", **kw)
     want = ops.dispatch(name, *fresh(), mode="oracle", **kw)
     if not isinstance(got, tuple):
@@ -301,6 +335,25 @@ def edge_cases(dev):
                 t(f(din, 3 * d, sc=din ** -0.5)), t(f(d, 3 * d, sc=d ** -0.5)),
                 t(f(3 * d, sc=0.1))]
         cases.append(("gru_cell", args, {}, f"M={m} D={d} Din={din}"))
+    # pres_predict: M = 1, ragged M, D % 4 != 0 (the scalar loop), a
+    # misaligned start (the scalar loop again), counts of 0 included
+    for m, d, off in [(1, 8, 0), (37, 12, 0), (50, 7, 0), (999, 100, 0),
+                      (64, 16, 1)]:
+        base = [t(f(m * d + off)), t(f(m * d + off, sc=0.4))]
+        args = [x[off:].view(m, d) for x in base] + [
+            t(np.round(rng.random(m) * 4).astype(np.float32))]
+        cases.append(("pres_predict", args, dict(clip=1.0),
+                      f"M={m} D={d} offset={off}"))
+    # neighbor_attn: M = 1 with K = 1, all-invalid rows (with K = 1 too),
+    # ragged M, the CONFIG and PRODUCTION head widths, the K and E limits
+    for m, kk, e, bad in [(1, 1, 8, 0), (5, 1, 16, 2), (9, 3, 12, 2),
+                          (37, 16, 64, 3), (21, 10, 50, 1), (13, 10, 100, 0),
+                          (33, 16, 128, 4), (3, 128, 256, 1)]:
+        valid = rng.random((m, kk)) < 0.7
+        valid[:bad] = False
+        args = [t(f(m, e)), t(f(m, kk, e)), t(f(m, kk, e)), t(valid)]
+        cases.append(("neighbor_attn", args, {},
+                      f"M={m} K={kk} E={e} invalid_rows={bad}"))
     return cases
 
 
@@ -310,7 +363,7 @@ def edge_cases(dev):
 
 
 class Capture:
-    """Keeps a copy of the largest inputs each kernel of `names` (default:
+    """Keeps a copy of the largest inputs each kernel of `names` (None:
     all) received while it is entered, the latest among equals, or with
     `latest=False` the first (a timed run then copies only when a larger
     input arrives); the launch goes through unchanged."""
@@ -319,7 +372,7 @@ class Capture:
         from repro_torch.kernels import ops
         self.ops = ops
         self.saved = dict(ops.REGISTRY)
-        self.names = set(names or self.saved)
+        self.names = set(self.saved if names is None else names)
         self.latest = latest
         self.best = {}
 
@@ -331,6 +384,10 @@ class Capture:
             return args[0].shape[0]
         if name == "link_score":
             return args[0].shape[0] * args[1].shape[0]
+        if name == "pres_predict":
+            return args[0].numel()
+        if name == "neighbor_attn":
+            return args[1].numel()
         return args[0].shape[0] * args[2].shape[1]
 
     def __enter__(self):
@@ -353,9 +410,10 @@ class Capture:
 
 
 def _compare_states(a, b, label):
-    """Rings, times and counts exact; table and tracker sums to 1e-4 (the
-    trackers are index_add_ sums whose CUDA atomics order varies). The
-    dump rows (last row of rings and trackers) are not state."""
+    """Rings, times and counts exact; table, tracker sums and mailbox
+    messages to 1e-4 (the trackers are index_add_ sums whose CUDA atomics
+    order varies). The dump rows (last row of rings, trackers and
+    mailbox) are not state."""
     import torch
     for key in ("nbr", "t", "ptr"):
         require(torch.equal(a["neighbors"][key][:-1],
@@ -366,6 +424,15 @@ def _compare_states(a, b, label):
     pa, pb = a["pres"].rows(), b["pres"].rows()
     require(torch.equal(pa.n, pb.n), f"{label}: pres.n differ")
     errs = {}
+    if "mailbox" in a:
+        for key in ("t", "ptr"):
+            require(torch.equal(a["mailbox"][key][:-1], b["mailbox"][key][:-1]),
+                    f"{label}: mailbox {key} differ")
+        x, y = a["mailbox"]["msg"][:-1], b["mailbox"]["msg"][:-1]
+        err = float((x - y).abs().max())
+        require(err <= 1e-4 * max(1.0, float(y.abs().max())),
+                f"{label}: mailbox messages differ by {err:.3g}")
+        errs["mailbox"] = err
     for key, x, y, tol in [
             ("memory", a["memory"].mem, b["memory"].mem, 1e-4),
             ("xi", pa.xi, pb.xi, 1e-4), ("psi", pa.psi, pb.psi, 1e-4)]:
@@ -377,6 +444,7 @@ def _compare_states(a, b, label):
 
 
 def _report(label, rep, counts, engine):
+    import torch
     log(f"[{label}] events={rep.n_events} ticks={rep.n_ticks} "
         f"events/s={rep.events_per_sec:.1f} "
         f"ingest p50={rep.ingest_p50_ms:.3f}ms p99={rep.ingest_p99_ms:.3f}ms "
@@ -384,14 +452,19 @@ def _report(label, rep, counts, engine):
         f"online_AP={rep.online_ap:.4f}")
     st = engine.state
     mb = lambda *ts: sum(x.numel() * x.element_size() for x in ts) / 1e6
+    box = (f" mailbox={mb(*st['mailbox'].values()):.1f}"
+           if "mailbox" in st else "")
     log(f"[{label}] state MB: memory={mb(st['memory'].mem):.1f} "
         f"trackers={mb(st['pres'].xi, st['pres'].psi, st['pres'].n):.1f} "
-        f"rings={mb(*st['neighbors'].values()):.1f}")
+        f"rings={mb(*st['neighbors'].values()):.1f}{box}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
 
 
 def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
                 max_events, query_batch, topk_src, k, oracle_replay,
-                big_query, probe, profile=0):
+                big_query, probe, expect=SERVE_KERNELS,
+                forbid=("gru_cell", "pres_predict", "neighbor_attn"),
+                profile=0):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -407,6 +480,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
 
     eng = engine("auto")
     eng.warmup(query=True, topk_k=k)
+    torch.cuda.reset_peak_memory_stats()
     kw = dict(rate=rate, tick=tick, query_batch=query_batch, seed=0,
               max_events=max_events, warmup=False)
     ops.reset_launch_counts()
@@ -419,7 +493,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _report(label, rep, counts, eng)
-    check_launches(label, counts, SERVE_KERNELS, ("gru_cell",))
+    check_launches(label, counts, expect, forbid)
     require(np.isfinite(scores).all() and scores.shape == (big_query,),
             f"{label}: bad query scores")
     require(vals.shape == (len(topk_src), k) and np.isfinite(vals).all()
@@ -510,25 +584,32 @@ def _report_profile(label, prof, wall_us, what):
 # ---------------------------------------------------------------------------
 
 
-def _clone(params, opt_state, state):
-    """Copies of a training start that share no storage with it."""
+def _clone(params, opt_state, state, pstate=None):
+    """Copies of a training carry that share no storage with it: (params,
+    opt_state, state) and, on the pipelined schedule, the snapshot."""
     from repro_torch.models import mdgnn
+    from repro_torch.train.pipeline import PipelineState
     from repro_torch.utils.tree import tree_map
-    return (tree_map(lambda t: t.detach().clone(), params),
-            tree_map(lambda t: t.clone(), opt_state),
-            mdgnn.clone_state(state))
+    out = (tree_map(lambda t: t.detach().clone(), params),
+           tree_map(lambda t: t.clone(), opt_state),
+           mdgnn.clone_state(state))
+    if pstate is None:
+        return out
+    return out + (PipelineState(pstate.read_mem.clone(),
+                                pstate.read_last_update.clone(),
+                                pstate.pending.clone(), pstate.tick),)
 
 
 def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
-    """loop.run_epoch over the first `steps` lag-one steps from clones of
-    `start` = (params, opt_state, state), then loop.evaluate when `val`
-    = (batches, negatives) is given. Returns (per-step losses, per-step
-    device-synced seconds (timed runs), EpochResult, (val AP, val AUC) or
-    None, final state)."""
+    """pipeline.run_epoch (the lag-one loop at depth 0) over the first
+    `steps` steps from clones of `start` = (params, opt_state, state), then
+    loop.evaluate when `val` = (batches, negatives) is given. Returns
+    (per-step losses, per-step device-synced seconds (timed runs),
+    EpochResult, (val AP, val AUC) or None, final state, final params)."""
     import torch
-    from repro_torch.train import loop
+    from repro_torch.train import loop, pipeline
     params, opt_state, state = _clone(*start)
-    step = loop.make_train_step(cfg, opt)
+    step = pipeline.make_train_step(cfg, opt)
     losses, secs = [], []
 
     def recorded(*a):
@@ -539,10 +620,10 @@ def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
         if timed:
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-        losses.append(out[3]["loss"])
+        losses.append(out[-1]["loss"])
         return out
 
-    params, opt_state, state, res = loop.run_epoch(
+    params, opt_state, state, res = pipeline.run_epoch(
         params, opt_state, state, batches[:steps + 1], cfg, recorded, None,
         dst_range, negatives=negs[:steps])
     ev = None
@@ -551,7 +632,16 @@ def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
                                      loop.make_eval_step(cfg), None,
                                      dst_range, negatives=val[1])
         ev = (vap, vauc)
-    return [float(x) for x in losses], secs, res, ev, state
+    return [float(x) for x in losses], secs, res, ev, state, params
+
+
+def _carry(cfg, start):
+    """Clones of `start`, with a fresh snapshot on the pipelined schedule."""
+    from repro_torch.train.pipeline import PipelineState
+    carry = _clone(*start)
+    if cfg.pipeline_depth:
+        carry += (PipelineState.init(carry[2]["memory"]),)
+    return carry
 
 
 def _profile_train(label, cfg, opt, start, batches, negs, n):
@@ -559,19 +649,15 @@ def _profile_train(label, cfg, opt, start, batches, negs, n):
     first step, unprofiled, warms the allocator)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.train import loop
-    params, opt_state, state = _clone(*start)
-    step = loop.make_train_step(cfg, opt)
-    params, opt_state, state, _ = step(params, opt_state, state, batches[0],
-                                       batches[1], negs[0])
+    from repro_torch.train import pipeline
+    step = pipeline.make_train_step(cfg, opt)
+    carry = step(*_carry(cfg, start), batches[0], batches[1], negs[0])[:-1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(1, n + 1):
-            params, opt_state, state, _ = step(params, opt_state, state,
-                                               batches[i], batches[i + 1],
-                                               negs[i])
+            carry = step(*carry, batches[i], batches[i + 1], negs[i])[:-1]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     _report_profile(label, prof, wall_us, f"{n} train steps")
@@ -579,17 +665,18 @@ def _profile_train(label, cfg, opt, start, batches, negs, n):
 
 def _step_vs_plain(cfg, opt, start, batches, negs, steps):
     """Every step of the kernel route against the plain route's step taken
-    from the SAME parameters, optimizer state and model state, so no
-    difference is carried from one step to the next. Returns the worst
-    relative difference of each quantity over the steps: the loss, the
-    logits, the memory table after the step, and the optimizer's first
-    moments (after one step 0.1 x the gradient) as one vector and leaf by
-    leaf, with the worst leaf's name."""
-    from repro_torch.train import loop
+    from the SAME parameters, optimizer state and model state (and, on the
+    pipelined schedule, snapshot), so no difference is carried from one
+    step to the next. Returns the worst relative difference of each
+    quantity over the steps: the loss, the logits, the memory table after
+    the step (and the snapshot), and the optimizer's first moments (after
+    one step 0.1 x the gradient) as one vector and leaf by leaf, with the
+    worst leaf's name."""
+    from repro_torch.train import pipeline
     from repro_torch.utils.tree import tree_leaves
-    params, opt_state, state = _clone(*start)
-    k_step = loop.make_train_step(cfg, opt)
-    p_step = loop.make_train_step(
+    carry = _carry(cfg, start)
+    k_step = pipeline.make_train_step(cfg, opt)
+    p_step = pipeline.make_train_step(
         dataclasses.replace(cfg, kernels_mode="oracle"), opt)
     amax = lambda t: float(t.abs().max())
     rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
@@ -597,16 +684,24 @@ def _step_vs_plain(cfg, opt, start, batches, negs, steps):
     worst = {"loss": 0.0, "logits": 0.0, "memory": 0.0, "moments": 0.0,
              "moments_leaf": 0.0, "worst_leaf": None}
     for i in range(steps):
-        _, p_os, p_st, p_m = p_step(*_clone(params, opt_state, state),
-                                    batches[i], batches[i + 1], negs[i])
-        params, opt_state, state, k_m = k_step(
-            params, opt_state, state, batches[i], batches[i + 1], negs[i])
-        k_mu, p_mu = tree_leaves(opt_state["mu"]), tree_leaves(p_os["mu"])
-        top = max(amax(b) for b in p_mu)
+        p_out = p_step(*_clone(*carry), batches[i], batches[i + 1], negs[i])
+        k_out = k_step(*carry, batches[i], batches[i + 1], negs[i])
+        carry = k_out[:-1]
+        k_m, p_m = k_out[-1], p_out[-1]
+        k_mu = tree_leaves(k_out[1]["mu"])
+        p_mu = tree_leaves(p_out[1]["mu"])
+        # (the first pipelined step's moments are all 0: the snapshot and
+        # the rings are empty and the coherence term has no gradient at a
+        # zero memory)
+        top = max(max(amax(b) for b in p_mu), 1e-30)
+        memory = rel(k_out[2]["memory"].mem, p_out[2]["memory"].mem, 1.0)
+        if cfg.pipeline_depth:
+            memory = max(memory, rel(k_out[3].read_mem, p_out[3].read_mem,
+                                     1.0))
         got = {"loss": rel(k_m["loss"], p_m["loss"], 0.0),
                "logits": max(rel(k_m[k], p_m[k], 1.0)
                              for k in ("logit_p", "logit_n")),
-               "memory": rel(state["memory"].mem, p_st["memory"].mem, 1.0),
+               "memory": memory,
                "moments": max(amax(a - b) for a, b in zip(k_mu, p_mu)) / top}
         for k, v in got.items():
             worst[k] = max(worst[k], v)
@@ -627,12 +722,15 @@ def _leaf_names(tree, path=""):
 
 
 def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
-                n_batches, expect, forbid, oracle_steps=None, profile=0):
+                n_batches, expect, forbid, oracle_steps=None, capture=(),
+                profile=0):
     """Train one epoch of `n_batches` temporal batches (then evaluate on
     `val_s` unless it is None) through the kernels, counting launches;
     then the same from the same start and negatives through the plain
-    versions, for all steps or the first `oracle_steps`, and compare.
-    Returns (launch counts, captured gru_cell inputs, summary)."""
+    versions, for all steps or the first `oracle_steps`, and compare. On
+    the pipelined schedule (cfg.pipeline_depth >= 1) `pres_predict` must
+    launch exactly once a step. Returns (launch counts, the largest inputs
+    of the kernels in `capture`, summary)."""
     import numpy as np
     import torch
     from repro_torch.graph.negatives import sample_negatives
@@ -654,15 +752,23 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    # the inputs are copied at the first step only, which events/s and the
-    # median step leave out
-    with Capture(names=("gru_cell",), latest=False) as cap:
-        losses, secs, res, ev, state = _run_train(
+    # gru_cell's inputs are copied when a larger one arrives, in practice
+    # at the first step only, which events/s and the median step leave out
+    with Capture(names=[n for n in capture if n == "gru_cell"],
+                 latest=False) as cap:
+        losses, secs, res, ev, state, params_f = _run_train(
             cfg, opt, start, batches, steps, negs, val, dst_range, True)
         torch.cuda.synchronize()
     counts = ops.launch_counts()
+    inputs = dict(cap.best)
+    inputs.update(_probe(cfg, capture, params_f, state, batches[-1],
+                         negs[-1]))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     check_launches(label, counts, expect, forbid)
+    if cfg.pipeline_depth:
+        require(counts["pres_predict"] == steps,
+                f"{label}: pres_predict launched {counts['pres_predict']} "
+                f"times in {steps} pipelined steps")
     require(np.isfinite(losses).all() and len(losses) == steps,
             f"{label}: bad losses {losses}")
     require(bool(torch.isfinite(state["memory"].mem).all()),
@@ -688,7 +794,7 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     # into a whole update), so past the first steps this bounds the
     # outcome, not the arithmetic
     o_cfg = dataclasses.replace(cfg, kernels_mode="oracle")
-    o_losses, _, o_res, o_ev, o_state = _run_train(
+    o_losses, _, o_res, o_ev, o_state, _ = _run_train(
         o_cfg, opt, start, batches, oracle_steps or steps, negs,
         val if oracle_steps is None else None, dst_range, False)
     rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, o_losses)]
@@ -716,7 +822,31 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     if profile:
         _profile_train(label, cfg, opt, start, batches, negs,
                        min(profile, steps - 1))
-    return counts, cap.best, summary
+    return counts, inputs, summary
+
+
+def _probe(cfg, names, params, state, batch, neg):
+    """Inputs of `names` other than gru_cell from one more call of the
+    path on the trained state, made after the counters were read: the
+    embedding of the last step's endpoints (neighbor_attn; at the first
+    step the rings are still empty) and the staleness fill with one
+    batch in flight (pres_predict)."""
+    import torch
+    from repro_torch.train import loop, pipeline
+    names = [n for n in names if n != "gru_cell"]
+    if not names:
+        return {}
+    with torch.no_grad(), Capture(names=names) as cap:
+        if "pres_predict" in names:
+            ps = pipeline.PipelineState.init(state["memory"])
+            nodes = torch.cat([batch.src, batch.dst])
+            ps.pending.index_add_(0, nodes, torch.cat(
+                [batch.mask, batch.mask]).float())
+            pipeline.stale_read_table(cfg, state["pres"], ps)
+        if "neighbor_attn" in names:
+            loop.endpoint_logits(params, cfg, state, batch, neg)
+        torch.cuda.synchronize()
+    return cap.best
 
 
 def cli_phase(label, argv, expect, forbid):
@@ -749,7 +879,64 @@ def library_gru_cell(args):
     w_hh = (u * flip).t().contiguous()
     b_ih = (b * flip).contiguous()
     b_hh = torch.zeros_like(b_ih)
-    return lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)
+    return lambda: torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh), args
+
+
+def library_neighbor_attn(args):
+    """scaled_dot_product_attention with a boolean mask computing the
+    kernel's function, as its yardstick (never on the path): one query a
+    row, batch M, one head. SDPA gives NaN for a row with no valid slot,
+    so rows with none get slot 0 valid; the yardstick and the plain
+    version it is checked against both take those inputs."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, valid = args
+    valid = valid.clone()
+    valid[~valid.any(1), 0] = True
+    q4, k4, v4 = q[:, None, None], k[:, None], v[:, None]
+    mask = valid[:, None, None]
+    return (lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask)[:, 0, 0],
+            [q, k, v, valid])
+
+
+LIBRARY = {"gru_cell": library_gru_cell,
+           "neighbor_attn": library_neighbor_attn}
+
+# phase groups, in the order they run; `--only` picks some
+PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
+          "serve-production-apan", "train-config", "cli", "train-production",
+          "train-config-pipe", "train-config-dense", "train-config-apan",
+          "cli-new", "train-production-pipe", "train-production-dense",
+          "train-production-apan")
+
+def kernel_row(name, spec, phase, inputs, counts):
+    """Check the kernel on the inputs its phase captured, time it, its
+    plain version and (where one exists) the library yardstick, and set
+    the bound beside them."""
+    from repro_torch.kernels import ops
+    _, a, kw = inputs[name]
+    err = check_kernel(name, a, kw, f"{phase} inputs")
+    copies = [x.clone() for x in a]
+    ms = time_ms(lambda: ops.dispatch(name, *copies, mode="compiled", **kw))
+    plain_ms = time_ms(lambda: ops.dispatch(name, *copies, mode="oracle",
+                                            **kw))
+    library_ms = None
+    if name in LIBRARY:
+        lib, lib_args = LIBRARY[name](copies)
+        want = ops.dispatch(name, *lib_args, mode="oracle", **kw)
+        lib_err = float((lib() - want).abs().max())
+        require(lib_err <= TOL[name] * max(1.0, float(want.abs().max())),
+                f"{name}: the library yardstick differs by {lib_err}")
+        library_ms = time_ms(lib)
+    b_ms, b_by = bound(name, a)
+    row = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": spec.replaces, "launches": counts[name],
+           "max_abs_err": err, "tol": TOL[name], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms, "shape": shape_of(name, a)}
+    log(f"[kernel:{phase}] {json.dumps(row)}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -763,7 +950,15 @@ def main(argv=None):
                     help="also profile TICKS query+fold rounds at the end "
                          "of each serve phase, and TICKS train steps after "
                          "each train phase")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run (default: all): "
+                         + ", ".join(PHASES) + "; the kernel rows then "
+                         "cover the kernels those phases captured")
     args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else set(PHASES)
+    unknown = only - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     try:
         import torch
     except ImportError:
@@ -800,126 +995,189 @@ def main(argv=None):
     log(f"[build] {len(_build.sources())} sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # 3. edge shapes
-    for name, a, kw, label in edge_cases(dev):
-        err = check_kernel(name, a, kw, label)
-        log(f"[edge] {name} {label}: max_abs_err={err:.3g}")
+    seconds = {}
 
-    # 4. serve at the paper model's widths on wiki-small
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"[{name}] phase took {seconds[name]}s")
+        return out
+
+    # 3. edge shapes
+    if "edge" in only:
+        for name, a, kw, label in edge_cases(dev):
+            err = check_kernel(name, a, kw, label)
+            log(f"[edge] {name} {label}: max_abs_err={err:.3g}")
+
     from repro_torch.graph import datasets
     from repro_torch.models.mdgnn import MDGNNConfig
     spec = datasets.SPECS["wiki-small"]
     wiki = datasets.get_dataset("wiki-small", 0)
     _, wiki_serve = wiki.train_serve_split(0.3)
     wiki_dst = (spec.n_users, spec.n_users + spec.n_items)
+    # tgn_pres.CONFIG widths and tgn_pres.PRODUCTION widths (the graph cut
+    # to stream-small's 120,000 nodes)
     cfg = MDGNNConfig(variant="tgn", n_nodes=wiki.num_nodes,
                       d_edge=wiki.feat_dim, d_mem=100, d_msg=100, d_time=32,
                       d_embed=100, n_neighbors=10, n_layers=1, use_pres=True,
                       use_kernels=True)
-    main_counts, main_inputs = serve_phase(
-        "serve-config", cfg, wiki_serve, wiki_dst, dev, rate=5000.0,
-        tick=200 / 5000.0, max_events=5000, query_batch=32,
-        topk_src=wiki_serve.src[:8], k=10, oracle_replay=True,
-        big_query=1024, probe=200, profile=args.profile)
-
-    # 5. serve at the PRODUCTION widths on the stream-small graph
     sspec = datasets.STREAM_SPECS["stream-small"]
     n_events = 307_200
-    stream = datasets.stream_events(sspec, 0, n_events + 11_000)
+    stream = None
+    if any(p.endswith("production") or "production-" in p for p in only):
+        stream = datasets.stream_events(sspec, 0, n_events + 11_000)
     s_dst = (sspec.n_users, sspec.num_nodes)
     pcfg = MDGNNConfig(variant="tgn", n_nodes=sspec.num_nodes,
                        d_edge=sspec.feat_dim, d_mem=128, d_msg=128,
                        d_time=64, d_embed=128, n_neighbors=16, n_layers=2,
                        use_pres=True, use_kernels=True)
-    prod_counts, prod_inputs = serve_phase(
-        "serve-production", pcfg, stream, s_dst, dev, rate=100_000.0,
-        tick=1000 / 100_000.0, max_events=n_events, query_batch=32,
-        topk_src=stream.src[:16], k=10, oracle_replay=False,
-        big_query=1024, probe=1000, profile=args.profile)
+    apan = dict(variant="apan")
+    dense = dict(dedup_embed=False)
+    pipe = dict(pipeline_depth=2)
+    rp = lambda c, **kw: dataclasses.replace(c, **kw)
+    # kernel name -> {"config" / "production": (captured inputs, counts)}
+    captured = {}
 
-    # 6-7. train both algorithms at the paper model's widths on wiki-small
+    def keep(names, phase, inputs, counts):
+        for n in names:
+            if n in inputs:
+                captured.setdefault(n, {})[phase] = (inputs, counts)
+
+    # 4-5. serve at CONFIG widths on wiki-small, PRODUCTION on stream-small
+    if "serve-config" in only:
+        c, i = timed("serve-config", serve_phase,
+                     "serve-config", cfg, wiki_serve, wiki_dst, dev,
+                     rate=5000.0, tick=200 / 5000.0, max_events=5000,
+                     query_batch=32, topk_src=wiki_serve.src[:8], k=10,
+                     oracle_replay=True, big_query=1024, probe=200,
+                     profile=args.profile)
+        keep(SERVE_KERNELS, "config", i, c)
+    if "serve-production" in only:
+        c, i = timed("serve-production", serve_phase,
+                     "serve-production", pcfg, stream, s_dst, dev,
+                     rate=100_000.0, tick=1000 / 100_000.0,
+                     max_events=n_events, query_batch=32,
+                     topk_src=stream.src[:16], k=10, oracle_replay=False,
+                     big_query=1024, probe=1000, profile=args.profile)
+        keep(SERVE_KERNELS, "production", i, c)
+    apan_forbid = ("embed_attn", "gru_cell", "pres_predict")
+    if "serve-config-apan" in only:
+        timed("serve-config-apan", serve_phase,
+              "serve-config-apan", rp(cfg, **apan), wiki_serve, wiki_dst,
+              dev, rate=5000.0, tick=200 / 5000.0, max_events=5000,
+              query_batch=32, topk_src=wiki_serve.src[:8], k=10,
+              oracle_replay=True, big_query=1024, probe=200,
+              expect=APAN_SERVE_KERNELS, forbid=apan_forbid,
+              profile=args.profile)
+    if "serve-production-apan" in only:
+        timed("serve-production-apan", serve_phase,
+              "serve-production-apan", rp(pcfg, **apan), stream, s_dst, dev,
+              rate=100_000.0, tick=1000 / 100_000.0,
+              max_events=n_events, query_batch=32,
+              topk_src=stream.src[:16], k=10, oracle_replay=False,
+              big_query=1024, probe=1000, expect=APAN_SERVE_KERNELS,
+              forbid=apan_forbid, profile=args.profile)
+
+    # 6-8. training: one epoch + evaluate at CONFIG widths on wiki-small
+    # (compared with the plain route), 40 steps at PRODUCTION widths on the
+    # first 41,000 stream-small events
     train_s, val_s, _ = wiki.chronological_split()
-    no_serve = ("link_score",)
+    head = stream.slice(0, 41_000) if stream is not None else None
     train_sum = {}
-    _, _, train_sum["train-config-pres"] = train_phase(
-        "train-config-pres", cfg, train_s, val_s, wiki_dst, dev,
-        batch_size=500, n_batches=None,
-        expect=("memory_update_table", "embed_attn"),
-        forbid=("gru_cell",) + no_serve, profile=args.profile)
-    std_counts, std_inputs, train_sum["train-config-std"] = train_phase(
-        "train-config-std", dataclasses.replace(cfg, use_pres=False),
-        train_s, val_s, wiki_dst, dev, batch_size=500, n_batches=None,
-        expect=("gru_cell", "embed_attn"),
-        forbid=("memory_update_table",) + no_serve, profile=args.profile)
+    new = ("pres_predict", "neighbor_attn")
+    no_serve = ("link_score",)
 
-    # the same two paths through the training CLI, one epoch each
+    def train(label, c, phase, expect, forbid, capture=()):
+        prod = phase == "production"
+        counts, inputs, train_sum[label] = timed(
+            label, train_phase, label, c, head if prod else train_s,
+            None if prod else val_s, s_dst if prod else wiki_dst, dev,
+            batch_size=1000 if prod else 500, n_batches=41 if prod else None,
+            expect=expect, forbid=forbid + no_serve,
+            oracle_steps=3 if prod else None, capture=capture,
+            profile=args.profile)
+        keep(capture, phase, inputs, counts)
+
+    pres_path = ("memory_update_table", "embed_attn")
+    std_path = ("gru_cell", "embed_attn")
+    na_path = ("memory_update_table", "neighbor_attn")
+    na_forbid = ("gru_cell", "embed_attn", "pres_predict")
+    if "train-config" in only:
+        train("train-config-pres", cfg, "config", pres_path,
+              ("gru_cell",) + new)
+        train("train-config-std", rp(cfg, use_pres=False), "config",
+              std_path, ("memory_update_table",) + new, capture=("gru_cell",))
     cli = ["--dataset", "wiki-small", "--model", "tgn", "--use-kernels",
            "--epochs", "1"]
-    train_sum["cli-pres"] = cli_phase(
-        "train-cli-pres", cli + ["--pres"],
-        ("memory_update_table", "embed_attn"), ("gru_cell",) + no_serve)
-    train_sum["cli-std"] = cli_phase(
-        "train-cli-std", cli, ("gru_cell", "embed_attn"),
-        ("memory_update_table",) + no_serve)
-
-    # 8. train both algorithms at the PRODUCTION widths
-    head = stream.slice(0, 41_000)
-    _, _, train_sum["train-production-pres"] = train_phase(
-        "train-production-pres", pcfg, head, None, s_dst, dev,
-        batch_size=1000, n_batches=41,
-        expect=("memory_update_table", "embed_attn"),
-        forbid=("gru_cell",) + no_serve, oracle_steps=3,
-        profile=args.profile)
-    pstd_counts, pstd_inputs, train_sum["train-production-std"] = \
-        train_phase("train-production-std",
-                    dataclasses.replace(pcfg, use_pres=False), head, None,
-                    s_dst, dev, batch_size=1000, n_batches=41,
-                    expect=("gru_cell", "embed_attn"),
-                    forbid=("memory_update_table",) + no_serve,
-                    oracle_steps=3, profile=args.profile)
+    if "cli" in only:
+        train_sum["cli-pres"] = timed(
+            "train-cli-pres", cli_phase, "train-cli-pres", cli + ["--pres"],
+            pres_path, ("gru_cell",) + new + no_serve)
+        train_sum["cli-std"] = timed(
+            "train-cli-std", cli_phase, "train-cli-std", cli, std_path,
+            ("memory_update_table",) + new + no_serve)
+    if "train-production" in only:
+        train("train-production-pres", pcfg, "production", pres_path,
+              ("gru_cell",) + new)
+        train("train-production-std", rp(pcfg, use_pres=False),
+              "production", std_path, ("memory_update_table",) + new,
+              capture=("gru_cell",))
+    pipe_path = pres_path + ("pres_predict",)
+    pipe_forbid = ("gru_cell", "neighbor_attn")
+    if "train-config-pipe" in only:
+        train("train-config-pipe-d1", rp(cfg, pipeline_depth=1), "config",
+              pipe_path, pipe_forbid)
+        train("train-config-pipe", rp(cfg, **pipe), "config", pipe_path,
+              pipe_forbid, capture=("pres_predict",))
+    if "train-config-dense" in only:
+        train("train-config-dense", rp(cfg, **dense), "config", na_path,
+              na_forbid, capture=("neighbor_attn",))
+    if "train-config-apan" in only:
+        train("train-config-apan", rp(cfg, **apan), "config", na_path,
+              na_forbid)
+    if "cli-new" in only:
+        train_sum["cli-pipe"] = timed(
+            "train-cli-pipe", cli_phase, "train-cli-pipe",
+            cli + ["--pres", "--pipeline-depth", "2"], pipe_path,
+            pipe_forbid + no_serve)
+        train_sum["cli-dense"] = timed(
+            "train-cli-dense", cli_phase, "train-cli-dense",
+            cli + ["--pres", "--no-dedup-embed"], na_path,
+            na_forbid + no_serve)
+        train_sum["cli-apan"] = timed(
+            "train-cli-apan", cli_phase, "train-cli-apan",
+            ["--dataset", "wiki-small", "--model", "apan", "--use-kernels",
+             "--epochs", "1", "--pres"], na_path, na_forbid + no_serve)
+    if "train-production-pipe" in only:
+        train("train-production-pipe", rp(pcfg, **pipe), "production",
+              pipe_path, pipe_forbid, capture=("pres_predict",))
+    if "train-production-dense" in only:
+        train("train-production-dense", rp(pcfg, **dense), "production",
+              na_path, na_forbid, capture=("neighbor_attn",))
+    if "train-production-apan" in only:
+        train("train-production-apan", rp(pcfg, **apan), "production",
+              na_path, na_forbid)
 
     # 9. kernels on the inputs their phases handed them
-    captured = {name: {"config": (main_inputs, main_counts),
-                       "production": (prod_inputs, prod_counts)}
-                for name in SERVE_KERNELS}
-    captured["gru_cell"] = {"config": (std_inputs, std_counts),
-                            "production": (pstd_inputs, pstd_counts)}
     rows, prod_rows = [], {}
     for name, spec_ in ops.REGISTRY.items():
-        for phase, (inputs, counts) in captured[name].items():
-            _, a, kw = inputs[name]
-            err = check_kernel(name, a, kw, f"{phase} inputs")
-            copies = [x.clone() for x in a]
-            ms = time_ms(lambda: ops.dispatch(name, *copies, mode="compiled",
-                                              **kw))
-            plain_ms = time_ms(lambda: ops.dispatch(name, *copies,
-                                                    mode="oracle", **kw))
-            library_ms = None
-            if name == "gru_cell":
-                lib = library_gru_cell(copies)
-                want = ops.dispatch(name, *copies, mode="oracle")
-                lib_err = float((lib() - want).abs().max())
-                require(lib_err <= TOL[name] * max(
-                    1.0, float(want.abs().max())),
-                    f"torch.gru_cell yardstick differs by {lib_err}")
-                library_ms = time_ms(lib)
-            b_ms, b_by = bound(name, a)
-            row = {"name": name, "route": "cuda", "source": SOURCES[name],
-                   "replaces": spec_.replaces, "launches": counts[name],
-                   "max_abs_err": err, "tol": TOL[name], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": library_ms, "shape": shape_of(name, a)}
-            log(f"[kernel:{phase}] {json.dumps(row)}")
+        for phase, (inputs, counts) in captured.get(name, {}).items():
+            row = kernel_row(name, spec_, phase, inputs, counts)
             if phase == "config":
                 rows.append(row)
             else:
                 prod_rows[name] = row
+    if only == set(PHASES):
+        require(len(rows) == len(ops.REGISTRY) == len(prod_rows),
+                f"kernel rows for {sorted(r['name'] for r in rows)} only")
+    log(f"[seconds] {json.dumps(seconds)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "production": prod_rows,
-             "train": train_sum}, indent=1))
+             "train": train_sum, "seconds": seconds}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

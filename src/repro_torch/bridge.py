@@ -5,8 +5,10 @@ parameters `time/{w,b}`, `msg/{w1,b1,w2,b2}`, `mem/{w,u,b}`,
 `emb/l<i>/{wq,wk,wv,wo}`, `dec/{w1,b1,w2,b2}`, `node_cls/...`,
 `pres/gamma_logit` (weights (in, out), used as `x @ W`, never transposed);
 state `memory/{mem,last_update}`, `neighbors/{nbr,t,ptr}`,
-`pres/{n,xi,psi}`. Converting from JAX arrays to numpy is the caller's
-business; nothing here sees a JAX array."""
+`pres/{n,xi,psi}` and, for APAN, `mailbox/{msg,t,ptr}`; the pipelined
+schedule's snapshot `{read_mem, read_last_update, pending, tick}`.
+Converting from JAX arrays to numpy is the caller's business; nothing here
+sees a JAX array."""
 from __future__ import annotations
 
 import numpy as np
@@ -40,7 +42,7 @@ def state_from_numpy(tree, device=None) -> dict:
     dev = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     mem, nb, pr = tree["memory"], tree["neighbors"], tree["pres"]
-    return {
+    state = {
         "memory": MemoryState(mem=_tensor(mem["mem"], f32, dev),
                               last_update=_tensor(mem["last_update"], f32,
                                                   dev)),
@@ -51,14 +53,47 @@ def state_from_numpy(tree, device=None) -> dict:
                           xi=_tensor(_with_dump(pr["xi"], 0), f32, dev),
                           psi=_tensor(_with_dump(pr["psi"], 0), f32, dev)),
     }
+    if "mailbox" in tree:
+        mb = tree["mailbox"]
+        state["mailbox"] = {
+            "msg": _tensor(_with_dump(mb["msg"], 0), f32, dev),
+            "t": _tensor(_with_dump(mb["t"], 0), f32, dev),
+            "ptr": _tensor(_with_dump(mb["ptr"], 0), i32, dev)}
+    return state
 
 
 def state_to_numpy(state) -> dict:
     """The JAX state layout as numpy arrays (dump rows dropped)."""
-    np_ = lambda t: t.detach().cpu().numpy()
     mem, nb, pr = state["memory"], state["neighbors"], state["pres"].rows()
-    return {
-        "memory": {"mem": np_(mem.mem), "last_update": np_(mem.last_update)},
-        "neighbors": {k: np_(nb[k][:-1]) for k in ("nbr", "t", "ptr")},
-        "pres": {"n": np_(pr.n), "xi": np_(pr.xi), "psi": np_(pr.psi)},
+    out = {
+        "memory": {"mem": _np(mem.mem), "last_update": _np(mem.last_update)},
+        "neighbors": {k: _np(nb[k][:-1]) for k in ("nbr", "t", "ptr")},
+        "pres": {"n": _np(pr.n), "xi": _np(pr.xi), "psi": _np(pr.psi)},
     }
+    if "mailbox" in state:
+        out["mailbox"] = {k: _np(v[:-1]) for k, v in state["mailbox"].items()}
+    return out
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def pipeline_state_from_numpy(tree, device=None):
+    """The pipelined schedule's `PipelineState` from the JAX layout
+    (`pending` gets the port's dump row, `tick` becomes a host int)."""
+    from repro_torch.train.pipeline import PipelineState
+    dev = resolve_device(device)
+    f32 = torch.float32
+    return PipelineState(
+        read_mem=_tensor(tree["read_mem"], f32, dev),
+        read_last_update=_tensor(tree["read_last_update"], f32, dev),
+        pending=_tensor(_with_dump(tree["pending"], 0), f32, dev),
+        tick=int(tree["tick"]))
+
+
+def pipeline_state_to_numpy(pstate) -> dict:
+    """The JAX `PipelineState` layout as numpy (the dump row dropped)."""
+    return {"read_mem": _np(pstate.read_mem),
+            "read_last_update": _np(pstate.read_last_update),
+            "pending": _np(pstate.pending[:-1]), "tick": pstate.tick}

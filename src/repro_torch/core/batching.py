@@ -1,6 +1,7 @@
 """Temporal batching machinery (counterpart of `repro/core/batching.py`):
-per-endpoint occurrences, the neighbour ring buffers, and the
-deduplicated k-hop frontier expansion of the embedding path.
+per-endpoint occurrences, the neighbour ring buffers (shared with APAN's
+mailbox), and the k-hop frontier expansions of the embedding path (the
+deduplicated one and the dense one).
 
 Neighbour state layout: `nbr` (N + 1, K) int32 (-1 = empty slot), `t`
 (N + 1, K) float32 and `ptr` (N + 1,) int32, where row N is a dump row for
@@ -141,4 +142,17 @@ def expand_frontiers_unique(neighbors, nodes, t_query, n_hops: int,
         hop["valid"] = valid
         hop["t_edge"] = t
         hops.append(hop)
+    return hops
+
+
+def expand_frontiers(neighbors, nodes, t_query, n_hops: int):
+    """The dense k-hop expansion with static (M * K**d,) shapes (the
+    `dedup_embed=False` path): hop 0 is {"nodes" (M,), "t" (M,)}; hop d
+    >= 1 is {"nodes" (M * K**d,) with empty slots clamped to node 0, "t"
+    (M * K**d,) the ring's edge times, "valid" (M * K**(d-1), K)}."""
+    hops = [{"nodes": nodes, "t": t_query}]
+    for _ in range(n_hops):
+        nbr, t, valid = gather_frontier(neighbors, hops[-1]["nodes"])
+        hops.append({"nodes": torch.clamp(nbr, min=0).reshape(-1),
+                     "t": t.reshape(-1), "valid": valid})
     return hops

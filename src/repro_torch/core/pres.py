@@ -55,6 +55,31 @@ def mixture_mean(state: PresState, nodes):
     return (alpha[..., None] * mu).sum(dim=1)
 
 
+def mixture_mean_rows(state: PresState):
+    """E[delta | node] of every real node, (N, D), computed on views of
+    the N real rows (no gather: at PRODUCTION size the trackers are
+    246 MB). The pipelined schedule's staleness fill reads all of them."""
+    rows = state.rows()
+    alpha, mu, _ = gmm(rows.n, rows.xi, rows.psi)
+    return (alpha[..., None] * mu).sum(dim=1)
+
+
+def predict(state: PresState, s_prev, dt, nodes=None, *, clip: float = 5.0):
+    """Eq. 7, the deterministic branch (the mixture mean; JAX's key=None):
+    s_hat = s_prev + clip(dt * E[delta | node], -clip, clip), the plain
+    route of the `pres_predict` kernel. s_prev: (M, D), dt: (M,), nodes:
+    (M,) node ids, or None for all N nodes in order (then M = N and the
+    mixture mean comes from views, `mixture_mean_rows`).
+
+    The sampled branch (a draw from the GMM component) is not ported: the
+    reference draws with jax.random, whose bits cannot be reproduced
+    (ROADMAP Queue 1 item 4)."""
+    from repro_torch.kernels import ref
+    delta = (mixture_mean_rows(state) if nodes is None
+             else mixture_mean(state, nodes))
+    return ref.pres_predict_ref(s_prev, delta, dt, clip=clip)
+
+
 def update_trackers(state: PresState, nodes, delta, etype, mask) -> None:
     """Eq. 9 online update, IN PLACE: every valid occurrence adds its count,
     delta and squared delta to its (node, etype) tracker; masked ones add

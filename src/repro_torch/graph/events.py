@@ -1,11 +1,16 @@
 """Event-based dynamic graph representation (counterpart of
 `repro/graph/events.py`): `EventBatch` holds one padded temporal batch as
 tensors, `EventStream` the host-side chronological stream as numpy arrays
-(with the chronological split and the temporal-batch carve of training),
-plus the serving replay's arrival-clock helpers (numpy copies)."""
+(with the chronological split, the temporal-batch carve of training and
+its background-thread prefetch), plus the serving replay's arrival-clock
+helpers (numpy copies)."""
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+import weakref
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -83,6 +88,14 @@ class EventStream:
         """K = ceil(|E| / b) temporal batches (the last one padded)."""
         return list(self.iter_temporal_batches(batch_size, device))
 
+    def prefetch_batches(self, batch_size: int, device=None,
+                         depth: int = 2) -> "PrefetchIterator":
+        """`iter_temporal_batches` carved on a background thread that keeps
+        up to `depth` batches ready ahead of the consumer (the pipelined
+        schedule's host prefetch)."""
+        return prefetch(self.iter_temporal_batches(
+            batch_size, resolve_device(device)), depth)
+
     def train_serve_split(self, serve_frac: float = 0.3):
         """Offline-training prefix and online-serving tail (the last
         `serve_frac` of the events)."""
@@ -95,6 +108,78 @@ class EventStream:
         """Apply a delivery permutation; timestamps keep their values."""
         return EventStream(self.src[perm], self.dst[perm], self.t[perm],
                            self.feat[perm], self.num_nodes)
+
+
+def _prefetch_put(q: queue.Queue, stop: threading.Event, item) -> bool:
+    """Blocking put that gives up once the consumer has closed (or
+    dropped) the iterator, so an abandoned producer does not spin."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _produce(it, q: queue.Queue, stop: threading.Event, done) -> None:
+    try:
+        for item in it:
+            if not _prefetch_put(q, stop, item):
+                return
+        _prefetch_put(q, stop, done)
+    except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
+        _prefetch_put(q, stop, e)
+
+
+class PrefetchIterator:
+    """An iterator drained by a daemon producer thread into a queue of at
+    most `depth` items, so batch preparation overlaps the consumer's
+    device work. An exception of the source is re-raised at the
+    consumer's next `__next__`; `close()`, exhaustion, or garbage
+    collection stops the producer.
+
+    The JAX version times the consumer's waits as an `obs` trace span
+    ("prefetch_wait"); the port has no `obs` layer yet (ROADMAP Queue 1
+    item 14), so nothing is timed here."""
+
+    _DONE = object()
+
+    def __init__(self, source: Iterable, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        # the thread closes over the queue and the event, not over self, so
+        # an abandoned iterator can be collected and its finalizer stops it
+        self._thread = threading.Thread(
+            target=_produce, args=(iter(source), self._queue, self._stop,
+                                   self._DONE), daemon=True)
+        self._thread.start()
+        self._finalizer = weakref.finalize(self, self._stop.set)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        item = self._queue.get()
+        if item is self._DONE:
+            self._stop.set()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._stop.set()
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+
+
+def prefetch(source: Iterable, depth: int = 2) -> Iterator:
+    """Background-thread prefetch of `depth` items from `source`."""
+    return PrefetchIterator(source, depth)
 
 
 def poisson_arrival_clock(n: int, rate: float, seed: int = 0) -> np.ndarray:

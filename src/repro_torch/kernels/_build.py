@@ -42,6 +42,8 @@ SIGNATURES = {
                          _P, _P, _I, _I, _P, _P],
     "repro_link_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "repro_gru_cell": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
+    "repro_pres_predict": [_P, _P, _P, _I64, _I, _F, _P, _P],
+    "repro_neighbor_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -17,10 +17,11 @@ its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
 them.
 
 `dispatch` is the raw route. The named wrappers below it are what the
-model calls: `gru_cell`, `memory_update_table` and `embed_attn` go through
-`autodiff` (the routed forward, a backward through the plain version), so
-training differentiates through the kernels; `link_score` (serving's
-top-k only) is the raw route."""
+model calls: `gru_cell`, `memory_update_table`, `embed_attn`,
+`pres_predict` and `neighbor_attn` go through `autodiff` (the routed
+forward, a backward through the plain version), so training
+differentiates through the kernels; `link_score` (serving's top-k only)
+is the raw route."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,11 +29,15 @@ import functools
 from types import ModuleType
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.kernels import autodiff
 from repro_torch.kernels import embed_attn as _ea
 from repro_torch.kernels import gru_cell as _gru
 from repro_torch.kernels import link_score as _ls
 from repro_torch.kernels import memory_update as _mu
+from repro_torch.kernels import neighbor_attn as _na
+from repro_torch.kernels import pres_predict as _pp
 from repro_torch.kernels import ref
 
 MODES = ("auto", "compiled", "interpret", "oracle")
@@ -63,6 +68,12 @@ REGISTRY: dict[str, KernelSpec] = {
     "gru_cell": KernelSpec(
         "gru_cell", _gru.gru_cell_cuda, ref.gru_cell_ref, _gru,
         "src/repro/kernels/gru_cell.py:34"),
+    "pres_predict": KernelSpec(
+        "pres_predict", _pp.pres_predict_cuda, ref.pres_predict_ref, _pp,
+        "src/repro/kernels/memory_update.py:290"),
+    "neighbor_attn": KernelSpec(
+        "neighbor_attn", _na.neighbor_attn_cuda, ref.neighbor_attn_ref, _na,
+        "src/repro/kernels/neighbor_attn.py:38"),
 }
 
 
@@ -117,12 +128,26 @@ def reset_launch_counts() -> None:
 #       h: the rows at gather_idx before the call, if the caller has them
 #   embed_attn(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv, *, mode,
 #       n_heads) -> (R, E); idx and valid take no gradient
+#   pres_predict(s_prev, delta_mean, scale, *, mode, clip) -> (M, D)
+#   neighbor_attn(q, k, v, valid, *, mode) -> (M, E); valid (bool, or int8
+#       turned into bool here: the kernel reads bool bytes) takes none
 gru_cell = autodiff.oracle_vjp(functools.partial(dispatch, "gru_cell"),
                                ref.gru_cell_ref)
 memory_update_table = autodiff.table_vjp(
     functools.partial(dispatch, "memory_update_table"), ref.memory_update_ref)
 embed_attn = autodiff.oracle_vjp(functools.partial(dispatch, "embed_attn"),
                                  ref.embed_attn_ref, nondiff=(2, 4))
+pres_predict = autodiff.oracle_vjp(
+    functools.partial(dispatch, "pres_predict"), ref.pres_predict_ref)
+_neighbor_attn = autodiff.oracle_vjp(
+    functools.partial(dispatch, "neighbor_attn"), ref.neighbor_attn_ref,
+    nondiff=(3,))
+
+
+def neighbor_attn(q, k, v, valid, **kw):
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    return _neighbor_attn(q, k, v, valid, **kw)
 
 
 def link_score(h_src, h_items, w1, b1, w2, b2, **kw):

@@ -7,6 +7,9 @@ reporting p50/p99 ingest and query latency, events/sec and the online AP:
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset wiki-small \
         --model tgn --pres --use-kernels
 
+`--model apan` serves APAN (mailbox attention through `neighbor_attn`);
+`--model jodie` is not ported and raises.
+
 It keeps the JAX CLI's flags. Flags this port cannot honour yet raise
 NotImplementedError naming the ROADMAP item that ports them, and so does
 any model configuration outside the ported slice (mdgnn.check_supported).
@@ -93,7 +96,8 @@ def main(argv=None):
     ap.add_argument("--dataset", default="wiki-small", choices=list(SPECS))
     ap.add_argument("--event-store", default=None,
                     help="not ported yet (raises)")
-    ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"])
+    ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
+                    help="tgn or apan ('jodie' is not ported)")
     ap.add_argument("--pres", action="store_true")
     ap.add_argument("--n-layers", type=int, default=1,
                     help="embedding depth (hops for tgn)")

@@ -1,6 +1,9 @@
 """End-to-end MDGNN training entry point (counterpart of
 `repro/launch/train.py`, the paper's experiment loop): Alg. 2 with
-`--pres`, Alg. 1 without.
+`--pres`, Alg. 1 without; `--model apan` for APAN's mailbox embedding,
+`--no-dedup-embed` for TGN's dense embedding expansion, and
+`--pipeline-depth N` (N >= 1) for the staleness-aware pipelined schedule,
+whose batches are carved on a prefetch thread.
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
         --model tgn --pres --use-kernels
@@ -30,16 +33,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.mdgnn import (MDGNNConfig, check_supported,
                                       init_params, init_state)
 from repro_torch.optim import adamw
-from repro_torch.train import loop
+from repro_torch.train import loop, pipeline
 
 # flag -> the ROADMAP item that ports it
 _NOT_YET = {
     "csv": "Queue 1 item 10 (JODIE csv loading)",
     "event_store": "Queue 1 item 17 (event store)",
-    "no_dedup_embed": "Queue 1 item 7 and Queue 2 item 6 (dense TGN path, "
-                      "neighbor_attn)",
-    "pipeline_depth": "Queue 1 item 12 and Queue 2 item 5 (pipelined "
-                      "schedule, pres_predict)",
     "scan_chunk": "Queue 1 item 15 (scan macro-batches)",
     "n_shards": "Queue 1 item 18 (memory parallelism)",
     "shard_budget": "Queue 1 item 18 (memory parallelism)",
@@ -48,7 +47,7 @@ _NOT_YET = {
     "trace_dir": "Queue 1 item 14 (obs/trace.py)",
 }
 # flags whose default means "off"
-_OFF = {"pipeline_depth": 0, "scan_chunk": 1, "n_shards": 1}
+_OFF = {"scan_chunk": 1, "n_shards": 1}
 
 
 def main(argv=None):
@@ -57,7 +56,8 @@ def main(argv=None):
     ap.add_argument("--csv", default=None, help="not ported yet (raises)")
     ap.add_argument("--event-store", default=None,
                     help="not ported yet (raises)")
-    ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"])
+    ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
+                    help="tgn or apan ('jodie' is not ported)")
     ap.add_argument("--pres", action="store_true",
                     help="Alg. 2 (PRES); without it Alg. 1")
     ap.add_argument("--beta", type=float, default=0.1)
@@ -75,18 +75,25 @@ def main(argv=None):
                     help="attention heads in the embedding stack")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-dedup-embed", action="store_true",
-                    help="not ported yet (raises)")
+                    help="TGN: embed over the dense seed expansion (M*K^d "
+                         "rows a hop, attention through neighbor_attn) "
+                         "instead of the deduplicated frontier (embed_attn)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route the memory step (memory_update_table with "
-                         "--pres, gru_cell without) and the embedding "
-                         "attention (embed_attn) through the CUDA kernels "
-                         "(required by this port)")
+                         "--pres, gru_cell without), the embedding "
+                         "attention (embed_attn, or neighbor_attn for APAN "
+                         "and --no-dedup-embed) and the pipeline's "
+                         "staleness fill (pres_predict) through the CUDA "
+                         "kernels (required by this port)")
     ap.add_argument("--kernels-mode", default="auto",
                     choices=["auto", "compiled", "interpret", "oracle"],
                     help="auto: kernels on CUDA, plain versions on the CPU; "
                          "oracle pins the plain versions; interpret raises")
     ap.add_argument("--pipeline-depth", type=int, default=0,
-                    help="not ported yet (raises unless 0)")
+                    help="staleness-aware pipelined schedule: the embedding "
+                         "reads a memory snapshot at most this many "
+                         "batch-writes stale, the in-flight rows filled by "
+                         "PRES Eq. 7 (0 = the lag-one loop)")
     ap.add_argument("--scan-chunk", type=int, default=1,
                     help="not ported yet (raises unless 1)")
     ap.add_argument("--n-shards", type=int, default=1,
@@ -119,28 +126,40 @@ def main(argv=None):
         d_mem=args.d_mem, d_msg=args.d_mem, d_embed=args.d_mem,
         n_layers=args.n_layers, n_heads=args.n_heads,
         use_pres=args.pres, beta=args.beta, delta_mode=args.delta_mode,
-        pres_scale=args.pres_scale, use_kernels=args.use_kernels,
-        kernels_mode=args.kernels_mode)
+        pres_scale=args.pres_scale, dedup_embed=not args.no_dedup_embed,
+        use_kernels=args.use_kernels, kernels_mode=args.kernels_mode,
+        pipeline_depth=args.pipeline_depth)
     check_supported(cfg)
+    depth = cfg.pipeline_depth
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          device)
     state = init_state(cfg, device)
     opt = adamw(args.lr)
     opt_state = opt.init(params)
-    train_step = loop.make_train_step(cfg, opt)
+    train_step = pipeline.make_train_step(cfg, opt)
     eval_step = loop.make_eval_step(cfg)
     gen = torch.Generator(device).manual_seed(args.seed)
-    batches = train_s.temporal_batches(args.batch_size, device)
+    # depth 0 trains from the materialised list; depth >= 1 re-carves the
+    # batches each epoch on a prefetch thread, overlapping the carve and
+    # the host-to-device copies with the steps
+    if depth:
+        make_batches = lambda: train_s.prefetch_batches(
+            args.batch_size, device, depth=max(2, depth))
+    else:
+        batches = train_s.temporal_batches(args.batch_size, device)
+        make_batches = lambda: batches
     val_batches = val_s.temporal_batches(args.batch_size, device)
     print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
           f"default={kops.resolve_mode('auto', device)}")
     print(f"[train] {args.model}{'-PRES' if args.pres else ''} on "
-          f"{args.dataset}: {len(train_s)} events, K={len(batches)} batches "
-          f"of b={args.batch_size}")
+          f"{args.dataset}: {len(train_s)} events, "
+          f"K={train_s.num_batches(args.batch_size)} batches of "
+          f"b={args.batch_size}"
+          + (f", pipeline_depth={depth}" if depth else ""))
     history = []
     for epoch in range(args.epochs):
-        params, opt_state, state, res = loop.run_epoch(
-            params, opt_state, state, batches, cfg, train_step, gen,
+        params, opt_state, state, res = pipeline.run_epoch(
+            params, opt_state, state, make_batches(), cfg, train_step, gen,
             dst_range)
         _, vap, vauc = loop.evaluate(params, state, val_batches, cfg,
                                      eval_step, gen, dst_range)

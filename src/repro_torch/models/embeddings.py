@@ -1,20 +1,68 @@
-"""TGN temporal-attention embedding on the deduplicated frontier
-(counterpart of `repro/models/embeddings.py`: `tgn_apply`,
-`_tgn_apply_dedup`, `_tgn_layer_compact`). Each layer's attention runs
-through the `embed_attn` kernel (`kernels/ops.py`), whose plain version is
-the CPU route; the output projection `wo` is a plain matrix product."""
+"""EMBEDDING modules (counterpart of `repro/models/embeddings.py`):
+
+    tgn_attn      L-hop temporal graph attention over the neighbour rings.
+                  With cfg.dedup_embed (the default) each hop is compacted
+                  to its distinct (node, time) keys and every layer runs
+                  through the `embed_attn` kernel (`_tgn_apply_dedup`);
+                  without it the static (M * K**d) expansion runs each
+                  layer's attention through `neighbor_attn`
+                  (`_tgn_apply_dense`).
+    apan_mailbox  stacked attention of the node's memory row over its
+                  mailbox of propagated messages, through `neighbor_attn`.
+
+JODIE's projection is not ported yet (ROADMAP Queue 1 item 11;
+`mdgnn.check_supported` refuses it). The output projection `wo` of every
+layer is a plain matrix product."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import batching
 from repro_torch.kernels import ops as kops
+from repro_torch.models import modules
+
+
+def neighbor_attention(q, k, v, valid, cfg):
+    """Multi-head masked attention through the `neighbor_attn` kernel, the
+    heads folded into the rows: (M, E) -> (M * H, E / H), so the kernel
+    and its plain version run one single-head loop. At H = 1 the folds are
+    identities. q: (M, E); k, v: (M, K, E); valid: (M, K) bool."""
+    m, e = q.shape
+    kk = k.shape[1]
+    h = cfg.n_heads
+    if h > 1:
+        dh = e // h
+        q = q.reshape(m * h, dh)
+        k = k.reshape(m, kk, h, dh).transpose(1, 2).reshape(m * h, kk, dh)
+        v = v.reshape(m, kk, h, dh).transpose(1, 2).reshape(m * h, kk, dh)
+        valid = torch.repeat_interleave(valid, h, dim=0)
+    agg = kops.neighbor_attn(q, k, v, valid, mode=cfg.kernels_mode)
+    if h > 1:
+        agg = agg.reshape(m, e)
+    return agg
+
+
+def _tgn_layer(params, layer_params, h_self, h_nbr, t_self, t_nbr, valid,
+               cfg):
+    """One dense attention layer: rows of h_self attend over their K
+    neighbours' layer l-1 rows h_nbr (M * K, d), keyed by [h_nbr,
+    cos(dt * w + b)]."""
+    m = h_self.shape[0]
+    kk = valid.shape[1]
+    dt = t_self[:, None] - t_nbr.reshape(m, kk)
+    t_enc = modules.time_encode(params["time"], dt)
+    kv_in = torch.cat([h_nbr.reshape(m, kk, -1), t_enc], dim=-1)
+    q = h_self @ layer_params["wq"]
+    k = kv_in @ layer_params["wk"]
+    v = kv_in @ layer_params["wv"]
+    agg = neighbor_attention(q, k, v, valid, cfg)
+    return torch.relu(torch.cat([agg, h_self], dim=-1) @ layer_params["wo"])
 
 
 def _tgn_layer_compact(params, layer_params, h_self, h_child, t_self, child,
                        cfg):
-    """One attention layer: rows of h_self attend over their K neighbours'
-    layer l-1 rows in the child hop's unique table."""
+    """One attention layer: rows of h_self attend over their K
+    neighbours' layer l-1 rows in the child hop's unique table."""
     rows = h_self.shape[0]
     kk = child["valid"].shape[1]
     dt = t_self[:, None] - child["t_edge"]
@@ -27,17 +75,20 @@ def _tgn_layer_compact(params, layer_params, h_self, h_child, t_self, child,
     return torch.relu(torch.cat([agg, h_self], dim=-1) @ layer_params["wo"])
 
 
+def _hop_rows(mem, hops):
+    # index_select, not mem[idx]: the backward of an indexing gather
+    # accumulates duplicates one warp per index, and padded or empty slots
+    # all read node 0; index_select's backward is index_add_
+    return [mem.mem.index_select(0, hop["nodes"]) for hop in hops]
+
+
 def _tgn_apply_dedup(params, cfg, state, nodes, t_query):
     """Hop 0 (the seeds) stays uncompacted; hop d >= 1 holds one row per
     distinct (node, time) key, computed once per layer."""
-    mem = state["memory"]
     n_layers = cfg.n_layers
     hops = batching.expand_frontiers_unique(state["neighbors"], nodes,
                                             t_query, n_layers, cfg.n_nodes)
-    # index_select, not mem[idx]: the backward of an indexing gather
-    # accumulates duplicates one warp per index, and every padded slot of
-    # a unique table is node 0; index_select's backward is index_add_
-    h = [mem.mem.index_select(0, hop["nodes"]) for hop in hops]
+    h = _hop_rows(state["memory"], hops)
     for l in range(1, n_layers + 1):
         lp = params["emb"][f"l{l - 1}"]
         h = [_tgn_layer_compact(params, lp, h[d], h[d + 1], hops[d]["t"],
@@ -46,7 +97,49 @@ def _tgn_apply_dedup(params, cfg, state, nodes, t_query):
     return h[0]
 
 
+def _tgn_apply_dense(params, cfg, state, nodes, t_query):
+    """The seed expansion (cfg.dedup_embed=False): layer l computes h^(l)
+    for every frontier level still needed (0 .. L - l), attending over the
+    h^(l-1) rows of the next level; h^(0) is the memory row. The work is
+    sum_d M * K**d rows a layer."""
+    n_layers = cfg.n_layers
+    hops = batching.expand_frontiers(state["neighbors"], nodes, t_query,
+                                     n_layers)
+    h = _hop_rows(state["memory"], hops)
+    for l in range(1, n_layers + 1):
+        lp = params["emb"][f"l{l - 1}"]
+        h = [_tgn_layer(params, lp, h[d], h[d + 1], hops[d]["t"],
+                        hops[d + 1]["t"], hops[d + 1]["valid"], cfg)
+             for d in range(n_layers - l + 1)]
+    return h[0]
+
+
 def tgn_apply(params, cfg, state, nodes, t_query):
-    """L-hop temporal graph attention (the dedup path; cfg.dedup_embed is
-    required by mdgnn.check_supported)."""
-    return _tgn_apply_dedup(params, cfg, state, nodes, t_query)
+    """L-hop temporal graph attention (TGN): the deduplicated path with
+    cfg.dedup_embed, the dense expansion without."""
+    if cfg.dedup_embed:
+        return _tgn_apply_dedup(params, cfg, state, nodes, t_query)
+    return _tgn_apply_dense(params, cfg, state, nodes, t_query)
+
+
+def apan_apply(params, cfg, state, nodes, t_query):
+    """APAN: cfg.n_layers stacked attention layers of the node's memory row
+    (then of the previous layer's output) over its mailbox messages; every
+    slot attends, empty ones included (zero messages), as in the
+    reference. t_query is unused, as there."""
+    s = state["memory"].mem.index_select(0, nodes)
+    msgs = state["mailbox"]["msg"].index_select(0, nodes)   # (M, Km, d_msg)
+    valid = torch.ones(msgs.shape[:2], dtype=torch.bool, device=msgs.device)
+    h = s
+    for l in range(cfg.n_layers):
+        lp = params["emb"][f"l{l}"]
+        q = h @ lp["wq"]
+        k = msgs @ lp["wk"]
+        v = msgs @ lp["wv"]
+        agg = neighbor_attention(q, k, v, valid, cfg)
+        h = torch.relu(torch.cat([agg, h], dim=-1) @ lp["wo"])
+    return h
+
+
+# model variant -> its embedding (the reference's VARIANT_EMBEDDINGS)
+VARIANT_EMBEDDINGS = {"tgn": tgn_apply, "apan": apan_apply}

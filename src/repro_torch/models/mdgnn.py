@@ -1,12 +1,12 @@
-"""MDGNN engine, TGN subset (counterpart of `repro/models/mdgnn.py`):
+"""MDGNN engine, TGN and APAN (counterpart of `repro/models/mdgnn.py`):
 configuration, parameters, runtime state, the MESSAGE stage and its
-per-occurrence bookkeeping, the batch-parallel memory update, the
-embedding entry point and the link decoder.
+per-occurrence bookkeeping, the batch-parallel memory update, APAN's
+mailbox, the embedding entry point and the link decoder.
 
 Only the configurations the ported slices implement are accepted
-(`check_supported`: TGN with the GRU cell and the kernels, PRES on or
-off); every other option raises NotImplementedError naming the ROADMAP
-item that ports it."""
+(`check_supported`: TGN or APAN with the GRU cell and the kernels, PRES on
+or off, either embedding path, any pipeline depth); every other option
+raises NotImplementedError naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,33 +59,33 @@ class MDGNNConfig:
     obs_metrics: bool = False
 
 
-# field -> (the value this slice implements, the ROADMAP item porting others)
+# field -> (the values the ported slices implement, the ROADMAP item
+# porting others)
 _SUPPORTED = {
-    "variant": ("tgn", "Queue 1 item 11 (rest of the MDGNN model family)"),
-    "memory_cell": ("gru", "Queue 1 item 11 (the rnn cell)"),
-    "aggregator": ("last", "Queue 1 item 11 (aggregator='mean')"),
-    "pres_scale": ("count", "Queue 1 item 11 (pres_scale='time')"),
-    "anchor_fraction": (1.0, "Queue 1 item 11 (the anchor mask)"),
-    "pres_buckets": (None, "Queue 1 item 11 (pres_buckets)"),
-    "mem_dtype": ("float32", "Queue 1 item 11 (mem_dtype='bfloat16')"),
-    "dedup_embed": (True, "Queue 1 item 7 and Queue 2 item 4 "
-                          "(dense TGN path, neighbor_attn)"),
-    "use_kernels": (True, "Queue 1 item 11 (use_kernels=False routing)"),
-    "pipeline_depth": (0, "Queue 1 item 12 (pipelined schedule)"),
-    "scan_chunk": (1, "Queue 1 item 15 (scan macro-batches)"),
-    "event_store": (None, "Queue 1 item 17 (event store)"),
-    "n_shards": (1, "Queue 1 item 18 (memory parallelism)"),
-    "obs_metrics": (False, "Queue 1 item 14 (telemetry)"),
+    "variant": (("tgn", "apan"), "Queue 1 item 11 (JODIE's projection "
+                                 "embedding)"),
+    "memory_cell": (("gru",), "Queue 1 item 11 (the rnn cell)"),
+    "aggregator": (("last",), "Queue 1 item 11 (aggregator='mean')"),
+    "pres_scale": (("count",), "Queue 1 item 11 (pres_scale='time')"),
+    "anchor_fraction": ((1.0,), "Queue 1 item 11 (the anchor mask)"),
+    "pres_buckets": ((None,), "Queue 1 item 11 (pres_buckets)"),
+    "mem_dtype": (("float32",), "Queue 1 item 11 (mem_dtype='bfloat16')"),
+    "use_kernels": ((True,), "Queue 1 item 11 (use_kernels=False routing)"),
+    "scan_chunk": ((1,), "Queue 1 item 15 (scan macro-batches)"),
+    "event_store": ((None,), "Queue 1 item 17 (event store)"),
+    "n_shards": ((1,), "Queue 1 item 18 (memory parallelism)"),
+    "obs_metrics": ((False,), "Queue 1 item 14 (telemetry)"),
 }
 
 
 def check_supported(cfg: MDGNNConfig) -> None:
-    """Raise NotImplementedError for any option outside the ported slice."""
-    for field, (value, item) in _SUPPORTED.items():
+    """Raise NotImplementedError for any option outside the ported slices."""
+    for field, (values, item) in _SUPPORTED.items():
         got = getattr(cfg, field)
-        if got != value:
+        if got not in values:
+            shown = values[0] if len(values) == 1 else values
             raise NotImplementedError(
-                f"repro_torch implements {field}={value!r} only, got "
+                f"repro_torch implements {field}={shown!r} only, got "
                 f"{got!r}; ROADMAP {item} ports the rest")
     if cfg.delta_mode not in ("transition", "innovation"):
         raise ValueError(f"unknown delta_mode {cfg.delta_mode!r}")
@@ -115,11 +115,14 @@ def param_shapes(cfg: MDGNNConfig) -> dict:
         "node_cls": {"w1": (e, e), "b1": (e,), "w2": (e, 1), "b2": (1,)},
         "pres": {"gamma_logit": ()},
     }
+    # keys and values: TGN's from [neighbour row, time encoding] (tgn_init),
+    # APAN's from the mailbox messages (apan_init)
     for l in range(cfg.n_layers):
         d_in = cfg.d_mem if l == 0 else e
+        d_kv = cfg.d_msg if cfg.variant == "apan" else d_in + cfg.d_time
         shapes["emb"][f"l{l}"] = {
-            "wq": (d_in, e), "wk": (d_in + cfg.d_time, e),
-            "wv": (d_in + cfg.d_time, e), "wo": (e + d_in, e)}
+            "wq": (d_in, e), "wk": (d_kv, e), "wv": (d_kv, e),
+            "wo": (e + d_in, e)}
     return shapes
 
 
@@ -151,27 +154,40 @@ def init_params(cfg: MDGNNConfig, generator: torch.Generator | None = None,
 
 
 def init_state(cfg: MDGNNConfig, device=None) -> dict:
-    """Zero memory, empty neighbour rings and PRES trackers on `device`
-    (rings and trackers carry a trailing dump row, see core/)."""
+    """Zero memory, empty neighbour rings and PRES trackers on `device`,
+    and for APAN an empty mailbox (`msg` (N + 1, mailbox_size, d_msg), `t`
+    (N + 1, mailbox_size), `ptr` (N + 1,)). Rings, trackers and mailbox
+    carry a trailing dump row (see core/)."""
     dev = resolve_device(device)
-    return {
+    state = {
         "memory": MemoryState.init(cfg.n_nodes, cfg.d_mem, dev),
         "neighbors": batching.init_neighbors(cfg.n_nodes, cfg.n_neighbors,
                                              dev),
         "pres": PresState.init(cfg.n_nodes, cfg.d_mem, dev),
     }
+    if cfg.variant == "apan":
+        n, km = cfg.n_nodes + 1, cfg.mailbox_size
+        state["mailbox"] = {
+            "msg": torch.zeros((n, km, cfg.d_msg), dtype=torch.float32,
+                               device=dev),
+            "t": torch.zeros((n, km), dtype=torch.float32, device=dev),
+            "ptr": torch.zeros((n,), dtype=torch.int32, device=dev)}
+    return state
 
 
 def clone_state(state) -> dict:
     """A copy of the runtime state that shares no storage with it."""
     mem, pr = state["memory"], state["pres"]
-    return {
+    out = {
         "memory": MemoryState(mem=mem.mem.detach().clone(),
                               last_update=mem.last_update.detach().clone()),
         "neighbors": {k: v.clone() for k, v in state["neighbors"].items()},
         "pres": PresState(n=pr.n.clone(), xi=pr.xi.clone(),
                           psi=pr.psi.clone()),
     }
+    if "mailbox" in state:
+        out["mailbox"] = {k: v.clone() for k, v in state["mailbox"].items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +272,21 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
 
 
 def embed_nodes(params, cfg: MDGNNConfig, state, nodes, t_query):
-    """Dynamic embeddings h_i(t) (TGN dedup attention, cfg.n_layers hops)."""
-    return embeddings.tgn_apply(params, cfg, state, nodes, t_query)
+    """Dynamic embeddings h_i(t) of the variant's EMBEDDING module (TGN
+    attention over cfg.n_layers hops, or APAN's mailbox attention)."""
+    return embeddings.VARIANT_EMBEDDINGS[cfg.variant](params, cfg, state,
+                                                      nodes, t_query)
+
+
+def update_mailbox(mailbox, nodes, msgs, times, mask) -> None:
+    """APAN: append each occurrence's message to its node's mailbox ring,
+    IN PLACE (the neighbour rings' `batching.ring_buffer_append`). A node
+    with more occurrences in the call than the mailbox holds keeps its
+    last `mailbox_size` (ROADMAP Queue 3 P4); masked rows go to the dump
+    row."""
+    batching.ring_buffer_append({"msg": mailbox["msg"], "t": mailbox["t"]},
+                                mailbox["ptr"], nodes,
+                                {"msg": msgs, "t": times}, mask)
 
 
 def link_logits(params, h_src, h_dst):

@@ -2,14 +2,17 @@
 `repro/serve/engine.py`).
 
 The engine keeps the whole runtime state (memory table, neighbour rings,
-PRES trackers) on the device and exposes three entry points:
+PRES trackers, APAN's mailbox) on the device and exposes three entry
+points:
 
-* `ingest(events)` folds a micro-batch through the fused memory path
-  (`loop.memory_and_pres`: the `memory_update_table` kernel), then updates
-  the trackers and the rings, all IN PLACE on the state tensors (the JAX
-  engine donates its state buffers for the same effect);
-* `query(srcs, dsts, ts)` scores candidate pairs through the TGN embedding
-  (`embed_attn` kernel) and the link decoder;
+* `ingest(events)` folds a micro-batch through the memory path
+  (`loop.memory_and_pres`: the `memory_update_table` kernel with PRES, the
+  `gru_cell` kernel without), then updates the trackers, the rings and
+  APAN's mailbox (`loop.maintain_state`), all IN PLACE on the state
+  tensors (the JAX engine donates its state buffers for the same effect);
+* `query(srcs, dsts, ts)` scores candidate pairs through the variant's
+  embedding (TGN: `embed_attn`, or `neighbor_attn` on the dense path;
+  APAN: `neighbor_attn`) and the link decoder;
 * `recommend_topk(srcs, t, k)` scores every source against the full item
   range through the `link_score` kernel and returns the top-k items.
 
@@ -66,8 +69,8 @@ class ServeEngine:
             aux = {"delta": delta, "info_nodes": info["nodes"],
                    "info_selected": info["selected"],
                    "info_mask": info["mask"]}
-            loop_lib.maintain_state(self.cfg, self.state, aux, batch,
-                                    track_deltas=self.track_deltas)
+            loop_lib.maintain_state(self.cfg, self.params, self.state, aux,
+                                    batch, track_deltas=self.track_deltas)
 
     @torch.no_grad()
     def _query_body(self, src, dst, t):

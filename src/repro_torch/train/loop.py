@@ -7,9 +7,13 @@ here (`memory_and_pres`, `maintain_state`) is shared with serving.
 
 Kernel routing (cfg.use_kernels, required by mdgnn.check_supported):
 PRES runs the whole memory step as one `memory_update_table` call; without
-PRES the memory cell is the `gru_cell` kernel; every embedding layer is
-`embed_attn`. Each is differentiable (kernels/autodiff.py): the kernel
-forward, a backward through its plain version.
+PRES the memory cell is the `gru_cell` kernel; every layer of the
+deduplicated TGN embedding is `embed_attn`, and the attention of the dense
+TGN path and of APAN is `neighbor_attn`. Each is differentiable
+(kernels/autodiff.py): the kernel forward, a backward through its plain
+version. The pipelined schedule (`pipeline_depth >= 1`) is
+`train/pipeline.py`; it shares the memory stage and the state maintenance
+here.
 
 State updates are IN PLACE on the state dict's tensors where the JAX
 engine donates and aliases its buffers, and the state is detached after
@@ -127,11 +131,23 @@ def link_bce(logit_p, logit_n, pos_mask, neg_mask):
     return (bce_p + bce_n) / denom
 
 
-def maintain_state(cfg: MDGNNConfig, state, aux, batch: EventBatch,
+def update_mailbox(params, cfg: MDGNNConfig, state,
+                   batch: EventBatch) -> None:
+    """APAN: the batch's messages, recomputed from the memory as it stands
+    after the step (with the parameters as they stand), appended to the
+    mailboxes in place. No gradient reaches the mailbox."""
+    with torch.no_grad():
+        nodes, times, msgs, mask = mdgnn.compute_messages(
+            params, cfg, state["memory"], batch)
+        mdgnn.update_mailbox(state["mailbox"], nodes, msgs, times, mask)
+
+
+def maintain_state(cfg: MDGNNConfig, params, state, aux, batch: EventBatch,
                    track_deltas: bool = True) -> None:
     """Post-step state maintenance, in place: detach the memory (the JAX
     step's stop_gradient), update the PRES trackers (with PRES and
-    `track_deltas`) and append the batch to the neighbour rings."""
+    `track_deltas`), append the batch to the neighbour rings and, for
+    APAN, its messages to the mailboxes."""
     state["memory"].mem.detach_()
     state["memory"].last_update.detach_()
     if track_deltas and cfg.use_pres:
@@ -140,6 +156,8 @@ def maintain_state(cfg: MDGNNConfig, state, aux, batch: EventBatch,
                              torch.zeros_like(nodes),
                              aux["info_selected"] & aux["info_mask"])
     batching.update_neighbors(state["neighbors"], batch)
+    if cfg.variant == "apan":
+        update_mailbox(params, cfg, state, batch)
 
 
 def make_train_step(cfg: MDGNNConfig, opt):
@@ -176,7 +194,7 @@ def make_train_step(cfg: MDGNNConfig, opt):
         apply_updates(params, updates)
         aux = {"delta": delta.detach(), "info_nodes": info["nodes"],
                "info_selected": info["selected"], "info_mask": info["mask"]}
-        maintain_state(cfg, state2, aux, prev_batch)
+        maintain_state(cfg, params, state2, aux, prev_batch)
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
                    "logit_p": logit_p.detach(), "logit_n": logit_n.detach()}
         return params, opt_state, state2, metrics
@@ -186,14 +204,17 @@ def make_train_step(cfg: MDGNNConfig, opt):
 
 def make_eval_step(cfg: MDGNNConfig):
     """eval_step(params, state, prev_batch, pos, neg) -> (state, logit_p,
-    logit_n): the memory update and the neighbour rings, in place, then the
-    logits. The PRES trackers are not updated, as in the JAX eval step."""
+    logit_n): the memory update, the neighbour rings and APAN's mailbox,
+    in place, then the logits. The PRES trackers are not updated, as in
+    the JAX eval step."""
 
     @torch.no_grad()
     def eval_step(params, state, prev_batch, pos, neg):
         mem2, _, _, _ = memory_and_pres(params, cfg, state, prev_batch)
         state2 = dict(state, memory=mem2)
         batching.update_neighbors(state2["neighbors"], prev_batch)
+        if cfg.variant == "apan":
+            update_mailbox(params, cfg, state2, prev_batch)
         logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
         return state2, logit_p, logit_n
 

@@ -47,7 +47,8 @@ def test_serving_imports_with_jax_blocked():
             "import repro_torch.kernels.ops, repro_torch.kernels.autodiff\n"
             "import repro_torch.launch.train, repro_torch.train.loop\n"
             "import repro_torch.optim, repro_torch.graph.negatives\n"
-            "import repro_torch.core.coherence\n"
+            "import repro_torch.core.coherence, repro_torch.bridge\n"
+            "import repro_torch.train.pipeline, repro_torch.models.embeddings\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

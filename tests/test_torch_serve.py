@@ -193,8 +193,8 @@ def test_stream_chunk_byte_identical(lo, hi):
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
     for change in (dict(variant="jodie"), dict(memory_cell="rnn"),
-                   dict(dedup_embed=False), dict(n_shards=2),
-                   dict(use_kernels=False), dict(pipeline_depth=1)):
+                   dict(pres_scale="time"), dict(n_shards=2),
+                   dict(use_kernels=False), dict(scan_chunk=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmdgnn.check_supported(dataclasses.replace(cfg, **change))
     state = tmdgnn.init_state(cfg, "cpu")
@@ -202,6 +202,18 @@ def test_unsupported_config_names_roadmap_item(tiny_stream):
     with pytest.raises(NotImplementedError, match="interpret"):
         ServeEngine(dataclasses.replace(cfg, kernels_mode="interpret"),
                     params, state, device="cpu").query([0], [1], [1.0])
+
+
+@pytest.mark.parametrize("model", ["apan", "tgn"])
+def test_launch_serve_cli_on_cpu(model, capsys):
+    """The serve CLI's replay and top-k on the CPU, APAN and TGN."""
+    from repro_torch.launch import serve as tserve
+    rep = tserve.main(["--dataset", "wiki-small", "--model", model,
+                       "--pres", "--use-kernels", "--device", "cpu",
+                       "--d-mem", "8", "--max-events", "400", "--topk", "3"])
+    out = capsys.readouterr().out
+    assert f"[serve] {model}-PRES" in out and "topk  : k=3" in out
+    assert rep.n_events == 400 and 0.0 <= rep.online_ap <= 1.0
 
 
 def test_launch_serve_cli_refuses_unported_flags():
@@ -212,3 +224,6 @@ def test_launch_serve_cli_refuses_unported_flags():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(["--pres", "--use-kernels", "--device", "cpu",
                          *flags])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tserve.main(["--model", "jodie", "--pres", "--use-kernels",
+                     "--device", "cpu", "--max-events", "10"])

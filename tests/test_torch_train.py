@@ -281,9 +281,29 @@ def test_launch_train_cli_on_cpu(tmp_path, capsys):
     assert out.exists()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--use-kernels", "--device", "cpu",
-                     "--pipeline-depth", "1"])
+                     "--scan-chunk", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--device", "cpu"])            # no --use-kernels
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ttrain.main(["--use-kernels", "--device", "cpu", "--model", "jodie"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.main(["--pres", "--use-kernels"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pres", "--pipeline-depth", "2"], ["--pres", "--model", "apan"],
+    ["--model", "apan"], ["--no-dedup-embed"]],
+    ids=["pipeline", "apan-pres", "apan-std", "dense"])
+def test_launch_train_cli_paths_on_cpu(flags, capsys):
+    """One epoch of each path the third slice added, through the CLI."""
+    from repro_torch.launch import train as ttrain
+    hist = ttrain.main(["--dataset", "wiki-small", "--use-kernels",
+                        "--device", "cpu", "--d-mem", "8", "--batch-size",
+                        "2000", "--epochs", "1", *flags])
+    printed = capsys.readouterr().out
+    assert "epoch 0: loss=" in printed
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    assert 0.0 <= hist[0]["val_ap"] <= 1.0
+    if "--pipeline-depth" in flags:
+        assert "pipeline_depth=2" in printed
