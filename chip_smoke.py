@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc.
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
-   large time gaps, D % 4 != 0, K = 1, the K and E limits).
+   large time gaps, D % 4 != 0, a misaligned start, K = 1, the K and E
+   limits, Din != D, clip bounds hit exactly, both PRES delta modes).
 4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk. The same replay then runs
@@ -20,46 +21,59 @@ Phases, each fatal on failure (non-zero exit, no result line):
    layers) on the first events of the 120,000-node stream-small graph,
    with a comparison of queries and top-k against the plain path.
    serve-config-apan / serve-production-apan: the same for APAN (mailbox
-   attention through neighbor_attn).
+   attention through neighbor_attn); serve-config-rnn /
+   serve-production-rnn: the rnn memory cell, PRES through pres_filter.
 6. train-config-pres / -std: Alg. 2 (PRES) and Alg. 1 (the gru_cell
    kernel) at CONFIG widths on wiki-small, one epoch (27 lag-one steps at
    b=500) through the epoch loop, then loop.evaluate over the validation
-   split; then the same epoch from the same start and negatives with
-   kernels_mode="oracle", compared free-running and step by step.
+   split; then the same epoch from the same start and negatives through
+   the kernels and with kernels_mode="oracle", both under deterministic
+   algorithms, compared free-running and step by step.
    train-config-pipe (the pipelined schedule at depth 1, then at depth 2,
-   pres_predict on every step), -dense (TGN's dense expansion, neighbor_attn) and -apan
-   (APAN) the same.
+   pres_predict on every step), -dense (TGN's dense expansion,
+   neighbor_attn), -apan (APAN), -rnn (the rnn cell with PRES: the cell,
+   then pres_filter), -rnn-std (the rnn cell, Alg. 1) and -time (PRES
+   with the paper's t2 - t1 scale and the mean aggregator, pipelined at
+   depth 2) the same. After train-config-pres (and -production-pres),
+   op-memory-update drives the dense registry op `ops.memory_update`,
+   which the model never calls (nor does the JAX package's), forward and
+   backward on that phase's occurrence rows.
 7. cli: both algorithms for one epoch through the training CLI
    (`python -m repro_torch.launch.train`, its default device); cli-new:
-   the CLI with --pipeline-depth 2, --no-dedup-embed and --model apan.
-8. train-production-pres / -std / -pipe / -dense / -apan: 40 steps at
-   PRODUCTION widths on the first 41,000 stream-small events (b=1000),
+   the CLI with --pipeline-depth 2, --no-dedup-embed and --model apan;
+   cli-time: with --pres-scale time.
+8. train-production-pres / -std / -pipe / -dense / -apan / -rnn: 40 steps
+   at PRODUCTION widths on the first 41,000 stream-small events (b=1000),
    the first 3 steps' losses compared with the plain path; step time,
    events/s and peak device memory.
 9. kernels: each kernel and its plain version timed (CUDA events, median)
    on the largest inputs it received in the phase that captured them (the
    serve phases' probe after their counters were read; gru_cell during
-   the Alg. 1 train phases; pres_predict and neighbor_attn in a probe of
-   the pipelined and dense train phases' path on their trained state),
-   compared there, set beside the card's bound for that work and, where
-   one PyTorch call computes the same function, beside that call's time.
+   the Alg. 1 train phases; pres_predict, neighbor_attn, pres_filter and
+   memory_update in a probe of their train phases' path on the trained
+   state), compared there, set beside the card's bound for that work and,
+   where one PyTorch call computes the same function, beside that call's
+   time (memory_update also beside gru_cell then pres_filter).
 
-Every serve and train phase names the kernels its path must launch and
-those it must not: the launch counters are zeroed just before the phase
-drives its path and read just after. `--only` runs some phases (the
-with no arguments it runs them all).
+Every serve and train phase names the kernels its path must launch; any
+other kernel launched fails it. The launch counters are zeroed just
+before the phase drives its path and read just after, and the memory
+stage's kernel must have launched once a step or fold. `--only` runs some
+phases; with no arguments it runs them all.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -70,21 +84,26 @@ PEAK_FP32 = 67e12
 # each output: |kernel - plain| <= TOL * max(1, max|that plain output|), the
 # fp32 sums running in another order; the outputs listed in EXACT (by
 # position) are copies, not sums, and must be equal (memory_update_table's
-# last_t holds the event times it scatters; pres_predict's one multiply,
-# clamp and add round as the plain version's separate kernels do, so its
-# output is held exactly too)
+# last_t holds the event times it scatters; pres_predict's and pres_filter's
+# products, sums and quotient round one by one as the plain version's
+# separate kernels do, so their outputs are held exactly too)
 TOL = {"memory_update_table": 1e-5, "embed_attn": 1e-4, "link_score": 1e-4,
-       "gru_cell": 1e-5, "pres_predict": 0.0, "neighbor_attn": 1e-4}
-EXACT = {"memory_update_table": (1,), "pres_predict": (0,)}
+       "gru_cell": 1e-5, "pres_predict": 0.0, "neighbor_attn": 1e-4,
+       "pres_filter": 0.0, "memory_update": 1e-5}
+EXACT = {"memory_update_table": (1,), "pres_predict": (0,),
+         "pres_filter": (0, 1)}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"memory_update_table": CSRC + "memory_update.cu",
            "embed_attn": CSRC + "embed_attn.cu",
            "link_score": CSRC + "link_score.cu",
            "gru_cell": CSRC + "gru_cell.cu",
            "pres_predict": CSRC + "pres_predict.cu",
-           "neighbor_attn": CSRC + "neighbor_attn.cu"}
+           "neighbor_attn": CSRC + "neighbor_attn.cu",
+           "pres_filter": CSRC + "pres_filter.cu",
+           "memory_update": CSRC + "memory_update.cu"}
 SERVE_KERNELS = ("memory_update_table", "embed_attn", "link_score")
 APAN_SERVE_KERNELS = ("memory_update_table", "neighbor_attn", "link_score")
+RNN_SERVE_KERNELS = ("pres_filter", "embed_attn", "link_score")
 # training against the plain route. Per step, from the same state: loss,
 # logits and memory table within fp32 sums in another order. The first
 # moments (0.1 x the gradients) are held at 1e-2 of their largest entry as
@@ -95,7 +114,9 @@ APAN_SERVE_KERNELS = ("memory_update_table", "neighbor_attn", "link_score")
 # share of a weight's gradient moves (measured by this script on the H100:
 # up to 3.9e-3 of the embedding's output projection over the 27 steps of
 # train-config-pres). Free-running over an epoch: train and val AP (the
-# routes drift apart chaotically past the first steps, see train_phase).
+# routes drift apart chaotically past the first steps, see train_phase;
+# both run under deterministic algorithms, so the gap is the same in every
+# run of the same code).
 STEP_TOL = {"loss": 1e-5, "logits": 1e-4, "memory": 1e-5, "moments": 1e-2,
             "moments_leaf": 5e-2}
 AP_LIMIT = 2e-2
@@ -203,12 +224,30 @@ def work(name, args):
         nv = int(valid.sum())
         nbytes = (live * e + 2 * nv * e + m * e) * f + m * kk
         return nbytes, nv * (4 * e + 8)
+    if name == "pres_filter":
+        # three (M, D) rows read, two written, dt and gamma; a multiply,
+        # clamp and add (Eq. 7), two multiplies and an add (Eq. 8), a
+        # subtract, max and divide (Eq. 9) an element
+        s_prev = args[0]
+        m, d = s_prev.shape
+        return (5 * m * d + m + 1) * f, 10 * m * d
+    if name == "memory_update":
+        x, h, w, u, b = args[:5]
+        m, din = x.shape
+        d = h.shape[1]
+        nbytes = (m * (din + 5 * d + 1) + w.numel() + u.numel() + b.numel()
+                  + 1) * f
+        return nbytes, m * (2 * 3 * d * (din + d) + 20 * d) + 10 * m * d
     raise SmokeFailure(f"no work count for kernel {name!r}")
 
 
 def shape_of(name, a):
     if name == "memory_update_table":
         return f"M={a[2].shape[0]} D={a[0].shape[1]} Din={a[2].shape[1]}"
+    if name == "memory_update":
+        return f"M={a[0].shape[0]} D={a[1].shape[1]} Din={a[0].shape[1]}"
+    if name == "pres_filter":
+        return f"M={a[0].shape[0]} D={a[0].shape[1]}"
     if name == "embed_attn":
         return (f"R={a[0].shape[0]} K={a[2].shape[1]} U={a[1].shape[0]} "
                 f"E={a[7].shape[1]}")
@@ -222,14 +261,22 @@ def shape_of(name, a):
     return f"B={a[0].shape[0]} I={a[1].shape[0]} D={a[0].shape[1]}"
 
 
-def check_launches(label, counts, expect, forbid):
-    """The phase's path launched every kernel of `expect` and none of
-    `forbid`."""
+def check_launches(label, counts, expect):
+    """The phase's path launched every kernel of `expect` and no other."""
     log(f"[{label}] launches {json.dumps(counts)}")
     require(all(counts[k] > 0 for k in expect),
             f"{label}: a kernel of the path never launched: {counts}")
-    require(all(counts[k] == 0 for k in forbid),
+    require(all(v == 0 for k, v in counts.items() if k not in expect),
             f"{label}: a kernel off the path launched: {counts}")
+
+
+def memory_stage_kernel(cfg):
+    """The kernel the memory stage of `cfg` launches once per step or
+    fold, or None (the rnn cell without PRES is plain PyTorch)."""
+    if cfg.use_pres:
+        return "memory_update_table" if cfg.memory_cell == "gru" \
+            else "pres_filter"
+    return "gru_cell" if cfg.memory_cell == "gru" else None
 
 
 def bound(name, args):
@@ -354,6 +401,35 @@ def edge_cases(dev):
         args = [t(f(m, e)), t(f(m, kk, e)), t(f(m, kk, e)), t(valid)]
         cases.append(("neighbor_attn", args, {},
                       f"M={m} K={kk} E={e} invalid_rows={bad}"))
+    # pres_filter: M = 1, D % 4 != 0 and a misaligned start (the scalar
+    # loop), counts of 0, scale * delta_mean past both clip bounds and
+    # exactly on them, both delta modes
+    modes = ("transition", "innovation")
+    for m, d, off in [(1, 8, 0), (1, 7, 0), (37, 12, 0), (50, 7, 0),
+                      (64, 16, 1), (1000, 100, 0)]:
+        base = [t(f(m * d + off, sc=sc)) for sc in (0.5, 0.5, 2.0)]
+        s_prev, s_meas, dmean = [x[off:].view(m, d) for x in base]
+        dt = np.round(rng.random(m) * 4).astype(np.float32)
+        dt[:2] = 2.0
+        dmean[0, :2] = torch.tensor([0.5, -0.5])
+        for mode in modes:
+            cases.append(("pres_filter",
+                          [s_prev, s_meas, dmean, t(dt), t(np.float32(0.37))],
+                          dict(clip=1.0, delta_mode=mode),
+                          f"M={m} D={d} offset={off} {mode}"))
+    # memory_update (dense): M = 1, M = 129 (a ragged last block), Din != D,
+    # the CONFIG and PRODUCTION widths, both delta modes
+    for m, d, din in [(1, 8, 8), (129, 16, 16), (37, 20, 36), (1000, 100, 100),
+                      (2000, 128, 128)]:
+        args = [t(f(m, din)), t(f(m, d, sc=0.5)),
+                t(f(din, 3 * d, sc=din ** -0.5)), t(f(d, 3 * d, sc=d ** -0.5)),
+                t(f(3 * d, sc=0.1)), t(f(m, d, sc=0.3)),
+                t(np.round(rng.random(m) * 3).astype(np.float32)),
+                t(np.float32(0.37))]
+        for mode in modes:
+            cases.append(("memory_update", args,
+                          dict(clip=1.0, delta_mode=mode),
+                          f"M={m} D={d} Din={din} {mode}"))
     return cases
 
 
@@ -388,6 +464,10 @@ class Capture:
             return args[0].numel()
         if name == "neighbor_attn":
             return args[1].numel()
+        if name == "pres_filter":
+            return args[0].numel()
+        if name == "memory_update":
+            return args[0].shape[0]
         return args[0].shape[0] * args[2].shape[1]
 
     def __enter__(self):
@@ -462,9 +542,7 @@ def _report(label, rep, counts, engine):
 
 def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
                 max_events, query_batch, topk_src, k, oracle_replay,
-                big_query, probe, expect=SERVE_KERNELS,
-                forbid=("gru_cell", "pres_predict", "neighbor_attn"),
-                profile=0):
+                big_query, probe, expect=SERVE_KERNELS, profile=0):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -480,6 +558,13 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
 
     eng = engine("auto")
     eng.warmup(query=True, topk_k=k)
+    folds = [0]
+    body = eng._ingest_body
+
+    def counted(batch):
+        folds[0] += 1
+        return body(batch)
+    eng._ingest_body = counted
     torch.cuda.reset_peak_memory_stats()
     kw = dict(rate=rate, tick=tick, query_batch=query_batch, seed=0,
               max_events=max_events, warmup=False)
@@ -493,7 +578,17 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     _report(label, rep, counts, eng)
-    check_launches(label, counts, expect, forbid)
+    summary = {"events": rep.n_events, "folds": folds[0],
+               "events_per_s": rep.events_per_sec,
+               "ingest_p50_ms": rep.ingest_p50_ms,
+               "ingest_p99_ms": rep.ingest_p99_ms,
+               "query_p50_ms": rep.query_p50_ms,
+               "query_p99_ms": rep.query_p99_ms, "online_ap": rep.online_ap,
+               "peak_mem_mb": torch.cuda.max_memory_allocated() / 1e6}
+    check_launches(label, counts, expect)
+    stage = memory_stage_kernel(cfg)
+    require(counts[stage] == folds[0], f"{label}: {stage} launched "
+            f"{counts[stage]} times in {folds[0]} folds")
     require(np.isfinite(scores).all() and scores.shape == (big_query,),
             f"{label}: bad query scores")
     require(vals.shape == (len(topk_src), k) and np.isfinite(vals).all()
@@ -505,6 +600,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     if oracle_replay:
         rep_o = replay(plain, stream, dst_range, **kw)
         errs = _compare_states(eng.state, plain.state, label)
+        summary["vs_plain_state"] = errs
         log(f"[{label}] oracle replay: AP={rep_o.online_ap:.4f} "
             f"max|state diff| {json.dumps(errs)}")
         require(abs(rep_o.online_ap - rep.online_ap) <= 1e-3,
@@ -517,6 +613,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     k_err = float(np.abs(vals - v_o).max())
     log(f"[{label}] vs plain path: max|query diff|={q_err:.3g} "
         f"max|top-k score diff|={k_err:.3g}")
+    summary.update(vs_plain_query=q_err, vs_plain_topk=k_err)
     require(q_err <= 1e-3 * max(1.0, float(np.abs(s_o).max())),
             f"{label}: query scores differ from the plain path by {q_err}")
     require(k_err <= 1e-3 * max(1.0, float(np.abs(v_o).max())),
@@ -534,7 +631,7 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     if profile:
         _profile(label, eng, stream, max_events + probe, profile, q_src[:64],
                  q_dst[:64], q_t[:64])
-    return counts, cap.best
+    return counts, cap.best, summary
 
 
 def _profile(label, eng, stream, lo, ticks, q_src, q_dst, q_t):
@@ -635,6 +732,27 @@ def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
     return [float(x) for x in losses], secs, res, ev, state, params
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms: index_add_ (the mean aggregator,
+    the PRES statistics) and the gathers' backward sum in index order, not
+    in the order atomics land, so a run gives the same numbers every time.
+    Any op without a deterministic version raises. cuBLAS is deterministic
+    on one stream, which is all this script uses; torch's alert for it
+    (it asks for CUBLAS_WORKSPACE_CONFIG, read once per process, which
+    slowed the timed runs' host-bound steps on the H100) is silenced."""
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "error", message=".*does not have a deterministic")
+            warnings.filterwarnings("ignore", message=".*it uses CuBLAS")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _carry(cfg, start):
     """Clones of `start`, with a fresh snapshot on the pipelined schedule."""
     from repro_torch.train.pipeline import PipelineState
@@ -722,15 +840,17 @@ def _leaf_names(tree, path=""):
 
 
 def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
-                n_batches, expect, forbid, oracle_steps=None, capture=(),
+                n_batches, expect, oracle_steps=None, capture=(),
                 profile=0):
     """Train one epoch of `n_batches` temporal batches (then evaluate on
     `val_s` unless it is None) through the kernels, counting launches;
     then the same from the same start and negatives through the plain
-    versions, for all steps or the first `oracle_steps`, and compare. On
-    the pipelined schedule (cfg.pipeline_depth >= 1) `pres_predict` must
-    launch exactly once a step. Returns (launch counts, the largest inputs
-    of the kernels in `capture`, summary)."""
+    versions, for all steps or the first `oracle_steps`, and compare. The
+    memory stage's kernel (`memory_stage_kernel`) must launch exactly once
+    a train and an evaluation step, and on the pipelined schedule
+    (cfg.pipeline_depth >= 1) `pres_predict` once a train step. Returns
+    (launch counts, the largest inputs of the kernels in `capture`,
+    summary)."""
     import numpy as np
     import torch
     from repro_torch.graph.negatives import sample_negatives
@@ -764,7 +884,12 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     inputs.update(_probe(cfg, capture, params_f, state, batches[-1],
                          negs[-1]))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    check_launches(label, counts, expect, forbid)
+    check_launches(label, counts, expect)
+    stage = memory_stage_kernel(cfg)
+    calls = steps + (len(val[0]) - 1 if val is not None else 0)
+    require(stage is None or counts[stage] == calls,
+            f"{label}: {stage} launched {counts.get(stage)} times in {calls} "
+            f"train and evaluation steps")
     if cfg.pipeline_depth:
         require(counts["pres_predict"] == steps,
                 f"{label}: pres_predict launched {counts['pres_predict']} "
@@ -788,29 +913,38 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     log(f"[{label}] {json.dumps(summary)}")
 
     # free-running: the same epoch from the same start and negatives
-    # through the plain versions. Their rounding differences (1e-7, and the
-    # order of the atomic sums in the gathers' backward) grow from step to
-    # step through training (AdamW turns a near-zero gradient's rounding
-    # into a whole update), so past the first steps this bounds the
-    # outcome, not the arithmetic
+    # through the kernels again and through the plain versions. Their
+    # rounding differences (1e-7) grow from step to step through training
+    # (AdamW turns a near-zero gradient's rounding into a whole update), so
+    # past the first steps this bounds the outcome, not the arithmetic.
+    # Both runs use deterministic algorithms: with sums in atomic order the
+    # gap itself varied from run to run (val AP 0.004-0.022 on the H100)
     o_cfg = dataclasses.replace(cfg, kernels_mode="oracle")
-    o_losses, _, o_res, o_ev, o_state, _ = _run_train(
-        o_cfg, opt, start, batches, oracle_steps or steps, negs,
-        val if oracle_steps is None else None, dst_range, False)
-    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, o_losses)]
+    n_free = oracle_steps or steps
+    free_val = val if oracle_steps is None else None
+    with _deterministic():
+        k_losses, _, k_res, k_ev, k_state, _ = _run_train(
+            cfg, opt, start, batches, n_free, negs, free_val, dst_range,
+            False)
+        o_losses, _, o_res, o_ev, o_state, _ = _run_train(
+            o_cfg, opt, start, batches, n_free, negs, free_val, dst_range,
+            False)
+        # teacher-forced: every step from the same state, held tightly
+        per_step = (_step_vs_plain(cfg, opt, start, batches, negs, steps)
+                    if oracle_steps is None else None)
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(k_losses, o_losses)]
     diff = {"loss_rel_by_step": rel}
     if oracle_steps is None:
-        diff.update(train_ap=abs(res.ap - o_res.ap),
-                    memory_table=float((state["memory"].mem
+        diff.update(train_ap=abs(k_res.ap - o_res.ap),
+                    memory_table=float((k_state["memory"].mem
                                         - o_state["memory"].mem).abs().max()))
-        if ev is not None:
-            diff["val_ap"] = abs(ev[0] - o_ev[0])
-        # teacher-forced: every step from the same state, held tightly
-        diff["per_step"] = _step_vs_plain(cfg, opt, start, batches, negs,
-                                          steps)
+        if k_ev is not None:
+            diff["val_ap"] = abs(k_ev[0] - o_ev[0])
+        diff["per_step"] = per_step
     log(f"[{label}] vs plain path: {json.dumps(diff)}")
-    require(max(rel[:3]) <= 1e-4, f"{label}: first losses {losses[:3]} vs "
-            f"plain {o_losses[:3]}")
+    require(max(rel[:3]) <= 1e-4, f"{label}: first losses {k_losses[:3]} "
+            f"vs plain {o_losses[:3]}")
     for k in ("train_ap", "val_ap"):
         require(diff.get(k, 0.0) <= AP_LIMIT, f"{label}: {k} differs from "
                 f"the plain route's by {diff.get(k)}")
@@ -829,27 +963,45 @@ def _probe(cfg, names, params, state, batch, neg):
     """Inputs of `names` other than gru_cell from one more call of the
     path on the trained state, made after the counters were read: the
     embedding of the last step's endpoints (neighbor_attn; at the first
-    step the rings are still empty) and the staleness fill with one
-    batch in flight (pres_predict)."""
+    step the rings are still empty), the staleness fill with one batch in
+    flight (pres_predict), and the memory stage on a copy of the state
+    (pres_filter; for memory_update, the rows `memory_update_table` gathers
+    and the rest of its inputs: the dense op on the same occurrences)."""
     import torch
+    from repro_torch.kernels import autodiff
+    from repro_torch.models import mdgnn
     from repro_torch.train import loop, pipeline
     names = [n for n in names if n != "gru_cell"]
     if not names:
         return {}
-    with torch.no_grad(), Capture(names=names) as cap:
+    wrap = set(names)
+    if "memory_update" in names:
+        wrap.add("memory_update_table")
+    with torch.no_grad(), Capture(names=wrap) as cap:
         if "pres_predict" in names:
             ps = pipeline.PipelineState.init(state["memory"])
             nodes = torch.cat([batch.src, batch.dst])
             ps.pending.index_add_(0, nodes, torch.cat(
                 [batch.mask, batch.mask]).float())
-            pipeline.stale_read_table(cfg, state["pres"], ps)
+            pipeline.stale_read_table(cfg, state["pres"], ps,
+                                      state["memory"].last_update)
         if "neighbor_attn" in names:
             loop.endpoint_logits(params, cfg, state, batch, neg)
+        if {"pres_filter", "memory_update"} & wrap:
+            loop.memory_and_pres(params, cfg, mdgnn.clone_state(state),
+                                 batch)
         torch.cuda.synchronize()
-    return cap.best
+    best = dict(cap.best)
+    if "memory_update" in names:
+        _, a, kw = best.pop("memory_update_table")
+        table, _, x, gidx, _, _, w, u, b, dm, scale, gamma = a
+        best["memory_update"] = (x.shape[0], [
+            x, autodiff.gather_rows(table, gidx), w, u, b, dm, scale, gamma],
+            kw)
+    return best
 
 
-def cli_phase(label, argv, expect, forbid):
+def cli_phase(label, argv, expect):
     """`python -m repro_torch.launch.train` with `argv` on the card (its
     default device), one epoch; its epoch line is printed by the CLI."""
     import numpy as np
@@ -857,11 +1009,37 @@ def cli_phase(label, argv, expect, forbid):
     from repro_torch.launch import train as train_cli
     ops.reset_launch_counts()
     hist = train_cli.main(argv)
-    check_launches(label, ops.launch_counts(), expect, forbid)
+    check_launches(label, ops.launch_counts(), expect)
     h = hist[-1]
     require(len(hist) == 1 and np.isfinite(h["loss"])
             and 0.0 <= h["val_ap"] <= 1.0, f"{label}: bad history {hist}")
     return h
+
+
+def op_phase(label, name, inputs):
+    """The registry op `name` on the inputs a phase captured, as a train
+    step runs it: the kernel forward under autograd, then the backward
+    through the plain version for random cotangents. For an op with no
+    call site in the model (memory_update, as in the JAX package, whose
+    kernel benchmark drives the registry op). Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    _, a, kw = inputs[name]
+    leaves = [x.detach().clone().requires_grad_(x.is_floating_point())
+              for x in a]
+    gen = torch.Generator(a[0].device).manual_seed(0)
+    ops.reset_launch_counts()
+    outs = getattr(ops, name)(*leaves, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [
+        torch.randn(o.shape, generator=gen, device=o.device) for o in outs])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_launches(label, counts, (name,))
+    require(counts[name] == 1 and all(
+        bool(torch.isfinite(x.grad).all()) for x in leaves
+        if x.grad is not None), f"{label}: bad launch count or gradient")
+    return counts
 
 
 def library_gru_cell(args):
@@ -905,10 +1083,13 @@ LIBRARY = {"gru_cell": library_gru_cell,
 
 # phase groups, in the order they run; `--only` picks some
 PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
-          "serve-production-apan", "train-config", "cli", "train-production",
-          "train-config-pipe", "train-config-dense", "train-config-apan",
-          "cli-new", "train-production-pipe", "train-production-dense",
-          "train-production-apan")
+          "serve-production-apan", "serve-config-rnn", "serve-production-rnn",
+          "train-config", "cli", "train-production", "train-config-pipe",
+          "train-config-dense", "train-config-apan", "train-config-rnn",
+          "train-config-rnn-std", "train-config-time", "cli-new", "cli-time",
+          "train-production-pipe", "train-production-dense",
+          "train-production-apan", "train-production-rnn")
+
 
 def kernel_row(name, spec, phase, inputs, counts):
     """Check the kernel on the inputs its phase captured, time it, its
@@ -935,6 +1116,13 @@ def kernel_row(name, spec, phase, inputs, counts):
            "max_abs_err": err, "tol": TOL[name], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms, "shape": shape_of(name, a)}
+    if name == "memory_update":
+        # the fusion's yardstick: the gru_cell and pres_filter kernels in
+        # turn on the same inputs
+        x, h, w, u, b, dm, scale, gamma = copies
+        row["composed_ms"] = time_ms(lambda: ops.pres_filter(
+            h, ops.gru_cell(x, h, w, u, b, mode="compiled"), dm, scale,
+            gamma, mode="compiled", **kw))
     log(f"[kernel:{phase}] {json.dumps(row)}")
     return row
 
@@ -1044,40 +1232,37 @@ def main(argv=None):
             if n in inputs:
                 captured.setdefault(n, {})[phase] = (inputs, counts)
 
-    # 4-5. serve at CONFIG widths on wiki-small, PRODUCTION on stream-small
-    if "serve-config" in only:
-        c, i = timed("serve-config", serve_phase,
-                     "serve-config", cfg, wiki_serve, wiki_dst, dev,
-                     rate=5000.0, tick=200 / 5000.0, max_events=5000,
-                     query_batch=32, topk_src=wiki_serve.src[:8], k=10,
-                     oracle_replay=True, big_query=1024, probe=200,
-                     profile=args.profile)
-        keep(SERVE_KERNELS, "config", i, c)
-    if "serve-production" in only:
-        c, i = timed("serve-production", serve_phase,
-                     "serve-production", pcfg, stream, s_dst, dev,
-                     rate=100_000.0, tick=1000 / 100_000.0,
-                     max_events=n_events, query_batch=32,
-                     topk_src=stream.src[:16], k=10, oracle_replay=False,
-                     big_query=1024, probe=1000, profile=args.profile)
-        keep(SERVE_KERNELS, "production", i, c)
-    apan_forbid = ("embed_attn", "gru_cell", "pres_predict")
-    if "serve-config-apan" in only:
-        timed("serve-config-apan", serve_phase,
-              "serve-config-apan", rp(cfg, **apan), wiki_serve, wiki_dst,
-              dev, rate=5000.0, tick=200 / 5000.0, max_events=5000,
-              query_batch=32, topk_src=wiki_serve.src[:8], k=10,
-              oracle_replay=True, big_query=1024, probe=200,
-              expect=APAN_SERVE_KERNELS, forbid=apan_forbid,
-              profile=args.profile)
-    if "serve-production-apan" in only:
-        timed("serve-production-apan", serve_phase,
-              "serve-production-apan", rp(pcfg, **apan), stream, s_dst, dev,
-              rate=100_000.0, tick=1000 / 100_000.0,
-              max_events=n_events, query_batch=32,
-              topk_src=stream.src[:16], k=10, oracle_replay=False,
-              big_query=1024, probe=1000, expect=APAN_SERVE_KERNELS,
-              forbid=apan_forbid, profile=args.profile)
+    # 4-5. serve at CONFIG widths on wiki-small (then the same replay
+    # through the plain versions), PRODUCTION on stream-small
+    serve_sum = {}
+    rnn = dict(memory_cell="rnn")
+
+    def serve(label, c, phase, expect, capture=(), key=None):
+        if label not in only:
+            return
+        prod = phase == "production"
+        run = (dict(stream=stream, dst_range=s_dst, rate=100_000.0,
+                    tick=1000 / 100_000.0, max_events=n_events,
+                    topk_src=stream.src[:16], oracle_replay=False,
+                    probe=1000) if prod else
+               dict(stream=wiki_serve, dst_range=wiki_dst, rate=5000.0,
+                    tick=200 / 5000.0, max_events=5000,
+                    topk_src=wiki_serve.src[:8], oracle_replay=True,
+                    probe=200))
+        counts, inputs, serve_sum[label] = timed(
+            label, serve_phase, label, c, dev=dev, query_batch=32, k=10,
+            big_query=1024, expect=expect, profile=args.profile, **run)
+        keep(capture, key or phase, inputs, counts)
+
+    serve("serve-config", cfg, "config", SERVE_KERNELS, SERVE_KERNELS)
+    serve("serve-production", pcfg, "production", SERVE_KERNELS,
+          SERVE_KERNELS)
+    serve("serve-config-apan", rp(cfg, **apan), "config", APAN_SERVE_KERNELS)
+    serve("serve-production-apan", rp(pcfg, **apan), "production",
+          APAN_SERVE_KERNELS)
+    serve("serve-config-rnn", rp(cfg, **rnn), "config", RNN_SERVE_KERNELS)
+    serve("serve-production-rnn", rp(pcfg, **rnn), "production",
+          RNN_SERVE_KERNELS, ("pres_filter",), key="serve-production")
 
     # 6-8. training: one epoch + evaluate at CONFIG widths on wiki-small
     # (compared with the plain route), 40 steps at PRODUCTION widths on the
@@ -1085,99 +1270,108 @@ def main(argv=None):
     train_s, val_s, _ = wiki.chronological_split()
     head = stream.slice(0, 41_000) if stream is not None else None
     train_sum = {}
-    new = ("pres_predict", "neighbor_attn")
-    no_serve = ("link_score",)
 
-    def train(label, c, phase, expect, forbid, capture=()):
+    def train(label, c, phase, expect, capture=()):
         prod = phase == "production"
         counts, inputs, train_sum[label] = timed(
             label, train_phase, label, c, head if prod else train_s,
             None if prod else val_s, s_dst if prod else wiki_dst, dev,
             batch_size=1000 if prod else 500, n_batches=41 if prod else None,
-            expect=expect, forbid=forbid + no_serve,
-            oracle_steps=3 if prod else None, capture=capture,
+            expect=expect, oracle_steps=3 if prod else None, capture=capture,
             profile=args.profile)
         keep(capture, phase, inputs, counts)
+        if "memory_update" in capture:
+            # the dense op on this phase's occurrences, counted on its own
+            label = f"op-memory-update-{phase}"
+            counts = timed(label, op_phase, label, "memory_update", inputs)
+            keep(("memory_update",), phase, inputs, counts)
 
     pres_path = ("memory_update_table", "embed_attn")
     std_path = ("gru_cell", "embed_attn")
     na_path = ("memory_update_table", "neighbor_attn")
-    na_forbid = ("gru_cell", "embed_attn", "pres_predict")
+    pipe_path = pres_path + ("pres_predict",)
+    rnn_path = ("pres_filter", "embed_attn")
     if "train-config" in only:
         train("train-config-pres", cfg, "config", pres_path,
-              ("gru_cell",) + new)
+              capture=("memory_update",))
         train("train-config-std", rp(cfg, use_pres=False), "config",
-              std_path, ("memory_update_table",) + new, capture=("gru_cell",))
+              std_path, capture=("gru_cell",))
     cli = ["--dataset", "wiki-small", "--model", "tgn", "--use-kernels",
            "--epochs", "1"]
+
+    def cli_run(label, argv, expect):
+        train_sum[label] = timed(f"train-{label}", cli_phase,
+                                 f"train-{label}", cli + argv, expect)
+
     if "cli" in only:
-        train_sum["cli-pres"] = timed(
-            "train-cli-pres", cli_phase, "train-cli-pres", cli + ["--pres"],
-            pres_path, ("gru_cell",) + new + no_serve)
-        train_sum["cli-std"] = timed(
-            "train-cli-std", cli_phase, "train-cli-std", cli, std_path,
-            ("memory_update_table",) + new + no_serve)
+        cli_run("cli-pres", ["--pres"], pres_path)
+        cli_run("cli-std", [], std_path)
     if "train-production" in only:
         train("train-production-pres", pcfg, "production", pres_path,
-              ("gru_cell",) + new)
+              capture=("memory_update",))
         train("train-production-std", rp(pcfg, use_pres=False),
-              "production", std_path, ("memory_update_table",) + new,
-              capture=("gru_cell",))
-    pipe_path = pres_path + ("pres_predict",)
-    pipe_forbid = ("gru_cell", "neighbor_attn")
+              "production", std_path, capture=("gru_cell",))
     if "train-config-pipe" in only:
         train("train-config-pipe-d1", rp(cfg, pipeline_depth=1), "config",
-              pipe_path, pipe_forbid)
+              pipe_path)
         train("train-config-pipe", rp(cfg, **pipe), "config", pipe_path,
-              pipe_forbid, capture=("pres_predict",))
+              capture=("pres_predict",))
     if "train-config-dense" in only:
         train("train-config-dense", rp(cfg, **dense), "config", na_path,
-              na_forbid, capture=("neighbor_attn",))
+              capture=("neighbor_attn",))
     if "train-config-apan" in only:
-        train("train-config-apan", rp(cfg, **apan), "config", na_path,
-              na_forbid)
+        train("train-config-apan", rp(cfg, **apan), "config", na_path)
+    if "train-config-rnn" in only:
+        train("train-config-rnn", rp(cfg, **rnn), "config", rnn_path,
+              capture=("pres_filter",))
+    if "train-config-rnn-std" in only:
+        train("train-config-rnn-std", rp(cfg, use_pres=False, **rnn),
+              "config", ("embed_attn",))
+    if "train-config-time" in only:
+        train("train-config-time", rp(cfg, pres_scale="time",
+                                      aggregator="mean", **pipe),
+              "config", pipe_path)
     if "cli-new" in only:
-        train_sum["cli-pipe"] = timed(
-            "train-cli-pipe", cli_phase, "train-cli-pipe",
-            cli + ["--pres", "--pipeline-depth", "2"], pipe_path,
-            pipe_forbid + no_serve)
-        train_sum["cli-dense"] = timed(
-            "train-cli-dense", cli_phase, "train-cli-dense",
-            cli + ["--pres", "--no-dedup-embed"], na_path,
-            na_forbid + no_serve)
+        cli_run("cli-pipe", ["--pres", "--pipeline-depth", "2"], pipe_path)
+        cli_run("cli-dense", ["--pres", "--no-dedup-embed"], na_path)
         train_sum["cli-apan"] = timed(
             "train-cli-apan", cli_phase, "train-cli-apan",
             ["--dataset", "wiki-small", "--model", "apan", "--use-kernels",
-             "--epochs", "1", "--pres"], na_path, na_forbid + no_serve)
+             "--epochs", "1", "--pres"], na_path)
+    if "cli-time" in only:
+        cli_run("cli-time", ["--pres", "--pres-scale", "time"], pres_path)
     if "train-production-pipe" in only:
         train("train-production-pipe", rp(pcfg, **pipe), "production",
-              pipe_path, pipe_forbid, capture=("pres_predict",))
+              pipe_path, capture=("pres_predict",))
     if "train-production-dense" in only:
         train("train-production-dense", rp(pcfg, **dense), "production",
-              na_path, na_forbid, capture=("neighbor_attn",))
+              na_path, capture=("neighbor_attn",))
     if "train-production-apan" in only:
         train("train-production-apan", rp(pcfg, **apan), "production",
-              na_path, na_forbid)
+              na_path)
+    if "train-production-rnn" in only:
+        train("train-production-rnn", rp(pcfg, **rnn), "production",
+              rnn_path, capture=("pres_filter",))
 
     # 9. kernels on the inputs their phases handed them
-    rows, prod_rows = [], {}
+    rows, more_rows = [], []
     for name, spec_ in ops.REGISTRY.items():
         for phase, (inputs, counts) in captured.get(name, {}).items():
             row = kernel_row(name, spec_, phase, inputs, counts)
-            if phase == "config":
-                rows.append(row)
-            else:
-                prod_rows[name] = row
+            (rows if phase == "config" else more_rows).append(row)
     if only == set(PHASES):
-        require(len(rows) == len(ops.REGISTRY) == len(prod_rows),
+        names = sorted(ops.REGISTRY)
+        require(sorted(r["name"] for r in rows) == names
+                and sorted({r["name"] for r in more_rows}) == names,
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")
     log(f"[seconds] {json.dumps(seconds)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(
-            {"card": card, "kernels": rows, "production": prod_rows,
-             "train": train_sum, "seconds": seconds}, indent=1))
+            {"card": card, "kernels": rows, "more_kernel_rows": more_rows,
+             "serve": serve_sum, "train": train_sum, "seconds": seconds},
+            indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,22 @@ def node_occurrences(batch: EventBatch):
     return nodes, times, other, feat, mask
 
 
+def mean_per_node(nodes, values, mask, num_nodes: int):
+    """Mean of the valid rows of `values` per node: ((N, D) means, (N,)
+    touched flags). Masked rows sum into a dump row. Differentiable (an
+    out-of-place index_add); on CUDA its sums run in atomic order, so they
+    agree with a sequential sum to rounding, not bits."""
+    idx = torch.where(mask, nodes, torch.full_like(nodes, num_nodes))
+    m = mask.to(values.dtype)
+    zeros = torch.zeros((num_nodes + 1, values.shape[-1]),
+                        dtype=values.dtype, device=values.device)
+    summed = zeros.index_add(0, idx, values * m[:, None])
+    cnt = torch.zeros(num_nodes + 1, dtype=values.dtype,
+                      device=values.device).index_add(0, idx, m)
+    mean = summed / torch.clamp(cnt[:, None], min=1.0)
+    return mean[:num_nodes], cnt[:num_nodes] > 0
+
+
 def init_neighbors(n_nodes: int, k: int, device):
     """Empty ring buffers with the trailing dump row."""
     return {

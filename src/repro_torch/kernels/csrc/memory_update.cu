@@ -1,14 +1,19 @@
-// memory_update_table for Hopper (sm_90a), plain C interface for ctypes.
+// memory_update_table and the dense memory_update for Hopper (sm_90a),
+// plain C interface for ctypes.
 //
 // Replaces: src/repro/kernels/memory_update.py::_memory_update_table_pallas
 // (body _memory_update_table_kernel). Per occurrence m of the touched rows:
 //   h      = table[gidx[m]]            (gidx >= N reads zeros)
 //   s_meas = GRU(x[m], h; W, U, b)      gates r, z, n over 3D columns
-//   s_pred = h + clip(scale[m] * dmean[m], +-clip)             (Eq. 7)
-//   fused  = (1 - gamma) s_pred + gamma s_meas                 (Eq. 8)
-//   delta  = (fused - base) / max(scale[m], 1), base = s_pred (innovation)
-//            or h (transition)                                 (Eq. 9)
+//   fused, delta = Eq. 7 -> 8 -> 9 of (h, s_meas, dmean[m]; scale[m], gamma)
+//                  (pres_rows.cuh: predict, correct, delta rate)
 //   table[widx[m]] = fused, last_t[widx[m]] = times[m]   for widx[m] < N
+//
+// And replaces src/repro/kernels/memory_update.py::_memory_update_pallas
+// (body _memory_update_kernel), the dense form: the same rows kernel with
+// h given in rows (no gather: gidx = nullptr, so row m reads h[m]), Din
+// free, and no scatter; it returns (s_meas, fused, delta). The TPU kernel
+// pads M to its 128-row tile; here the ragged last block masks itself.
 //
 // The TPU kernel walks the occurrences in order through an aliased table,
 // which is hazard-free only because its grid is sequential. Blocks here run
@@ -27,11 +32,14 @@
 // column j, loads W[k, j], W[k, D + j], W[k, 2D + j] once per k and reuses
 // them over the block's GRU_ROWS occurrences, whose x and h rows sit in
 // shared memory (a broadcast read per k); that GRU body is shared with
-// gru_cell.cu (gru_rows.cuh). fp32 FMA, no tensor cores yet.
+// gru_cell.cu (gru_rows.cuh). The filter runs on the column in registers,
+// so s_meas never goes back to memory before it. fp32 FMA, no tensor cores
+// yet.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gru_rows.cuh"
+#include "pres_rows.cuh"
 
 namespace {
 
@@ -55,22 +63,21 @@ __global__ void memory_update_rows_kernel(
     __syncthreads();
 
     const float gamma = *gamma_ptr;
+    const float omg = __fsub_rn(1.0f, gamma);
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
         float sm[GRU_ROWS];
         gru_column(xs, hs, din, d, w, u, b, j, sm);
 #pragma unroll
         for (int r = 0; r < GRU_ROWS; ++r) {
             if (r < nrows) {
-                const float h = hs[r * d + j];
                 const int64_t o = (int64_t)(row0 + r) * d + j;
-                const float sc = scale[row0 + r];
-                const float step = fminf(fmaxf(sc * dmean[o], -clip), clip);
-                const float sp = h + step;
-                const float fu = (1.0f - gamma) * sp + gamma * sm[r];
-                const float base = innovation ? sp : h;
+                float fu, de;
+                pres_filter_elem(hs[r * d + j], sm[r], dmean[o],
+                                 scale[row0 + r], gamma, omg, clip,
+                                 innovation, fu, de);
                 s_meas[o] = sm[r];
                 fused[o] = fu;
-                delta[o] = (fu - base) / fmaxf(sc, 1.0f);
+                delta[o] = de;
             }
         }
     }
@@ -94,17 +101,12 @@ __global__ void memory_update_scatter_kernel(
     }
 }
 
-}  // namespace
-
-extern "C" int repro_memory_update_table(
-        void* table, void* last_t, int64_t n_rows, int d,
-        const void* x, int din, const void* gidx, const void* widx,
-        const void* times, const void* w, const void* u, const void* b,
-        const void* dmean, const void* scale, const void* gamma, float clip,
-        int innovation, int m, void* s_meas, void* fused, void* delta,
-        void* stream) {
-    if (m <= 0) return 0;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Phase 1 over m rows: h = table[gidx[r]] (gidx = nullptr: h = table[r]).
+int launch_rows(const void* table, int64_t n_rows, int d, const void* x,
+                int din, const void* gidx, const void* w, const void* u,
+                const void* b, const void* dmean, const void* scale,
+                const void* gamma, float clip, int innovation, int m,
+                void* s_meas, void* fused, void* delta, cudaStream_t st) {
     const size_t smem = sizeof(float) * GRU_ROWS * (size_t)(din + d);
     cudaError_t e = gru_set_smem(memory_update_rows_kernel, smem);
     if (e != cudaSuccess) return (int)e;
@@ -118,8 +120,24 @@ extern "C" int repro_memory_update_table(
         static_cast<const float*>(scale), static_cast<const float*>(gamma),
         clip, innovation, m, static_cast<float*>(s_meas),
         static_cast<float*>(fused), static_cast<float*>(delta));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_memory_update_table(
+        void* table, void* last_t, int64_t n_rows, int d,
+        const void* x, int din, const void* gidx, const void* widx,
+        const void* times, const void* w, const void* u, const void* b,
+        const void* dmean, const void* scale, const void* gamma, float clip,
+        int innovation, int m, void* s_meas, void* fused, void* delta,
+        void* stream) {
+    if (m <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = launch_rows(table, n_rows, d, x, din, gidx, w, u, b, dmean,
+                          scale, gamma, clip, innovation, m, s_meas, fused,
+                          delta, st);
+    if (err != 0) return err;
     const int64_t total = (int64_t)m * d;
     const int threads = 256;
     const int sblocks = (int)((total + threads - 1) / threads);
@@ -128,4 +146,15 @@ extern "C" int repro_memory_update_table(
         static_cast<const int32_t*>(widx), static_cast<const float*>(times),
         static_cast<const float*>(fused), m);
     return (int)cudaGetLastError();
+}
+
+extern "C" int repro_memory_update(
+        const void* x, int din, const void* h, int d, const void* w,
+        const void* u, const void* b, const void* dmean, const void* scale,
+        const void* gamma, float clip, int innovation, int m, void* s_meas,
+        void* fused, void* delta, void* stream) {
+    if (m <= 0) return 0;
+    return launch_rows(h, m, d, x, din, nullptr, w, u, b, dmean, scale,
+                       gamma, clip, innovation, m, s_meas, fused, delta,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -18,10 +18,10 @@ them.
 
 `dispatch` is the raw route. The named wrappers below it are what the
 model calls: `gru_cell`, `memory_update_table`, `embed_attn`,
-`pres_predict` and `neighbor_attn` go through `autodiff` (the routed
-forward, a backward through the plain version), so training
-differentiates through the kernels; `link_score` (serving's top-k only)
-is the raw route."""
+`pres_predict`, `neighbor_attn`, `pres_filter` and `memory_update` go
+through `autodiff` (the routed forward, a backward through the plain
+version), so training differentiates through the kernels; `link_score`
+(serving's top-k only) is the raw route."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,7 +36,9 @@ from repro_torch.kernels import embed_attn as _ea
 from repro_torch.kernels import gru_cell as _gru
 from repro_torch.kernels import link_score as _ls
 from repro_torch.kernels import memory_update as _mu
+from repro_torch.kernels import memory_update_dense as _mud
 from repro_torch.kernels import neighbor_attn as _na
+from repro_torch.kernels import pres_filter as _pf
 from repro_torch.kernels import pres_predict as _pp
 from repro_torch.kernels import ref
 
@@ -74,6 +76,12 @@ REGISTRY: dict[str, KernelSpec] = {
     "neighbor_attn": KernelSpec(
         "neighbor_attn", _na.neighbor_attn_cuda, ref.neighbor_attn_ref, _na,
         "src/repro/kernels/neighbor_attn.py:38"),
+    "pres_filter": KernelSpec(
+        "pres_filter", _pf.pres_filter_cuda, ref.pres_filter_ref, _pf,
+        "src/repro/kernels/pres_filter.py:37"),
+    "memory_update": KernelSpec(
+        "memory_update", _mud.memory_update_cuda, ref.memory_update_ref,
+        _mud, "src/repro/kernels/memory_update.py:69"),
 }
 
 
@@ -131,6 +139,11 @@ def reset_launch_counts() -> None:
 #   pres_predict(s_prev, delta_mean, scale, *, mode, clip) -> (M, D)
 #   neighbor_attn(q, k, v, valid, *, mode) -> (M, E); valid (bool, or int8
 #       turned into bool here: the kernel reads bool bytes) takes none
+#   pres_filter(s_prev, s_meas, delta_mean, dt, gamma, *, mode, clip,
+#       delta_mode) -> (fused, delta), each (M, D); gamma is 0-d; dt (the
+#       Eq. 7 scale, from state) takes no gradient
+#   memory_update(x, h, w, u, b, delta_mean, scale, gamma, *, mode, clip,
+#       delta_mode) -> (s_meas, fused, delta), each (M, D)
 gru_cell = autodiff.oracle_vjp(functools.partial(dispatch, "gru_cell"),
                                ref.gru_cell_ref)
 memory_update_table = autodiff.table_vjp(
@@ -142,6 +155,12 @@ pres_predict = autodiff.oracle_vjp(
 _neighbor_attn = autodiff.oracle_vjp(
     functools.partial(dispatch, "neighbor_attn"), ref.neighbor_attn_ref,
     nondiff=(3,))
+
+pres_filter = autodiff.oracle_vjp(
+    functools.partial(dispatch, "pres_filter"), ref.pres_filter_ref,
+    nondiff=(3,))
+memory_update = autodiff.oracle_vjp(
+    functools.partial(dispatch, "memory_update"), ref.memory_update_ref)
 
 
 def neighbor_attn(q, k, v, valid, **kw):

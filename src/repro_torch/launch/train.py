@@ -64,7 +64,8 @@ def main(argv=None):
     ap.add_argument("--delta-mode", default="transition",
                     choices=["innovation", "transition"])
     ap.add_argument("--pres-scale", default="count", choices=["count", "time"],
-                    help="Eq. 7 extrapolation scale ('time' is not ported)")
+                    help="Eq. 7 extrapolation scale: the node's count of "
+                         "events in the batch, or the paper's t2 - t1")
     ap.add_argument("--batch-size", type=int, default=500)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--lr", type=float, default=1e-3)

@@ -4,9 +4,10 @@ per-occurrence bookkeeping, the batch-parallel memory update, APAN's
 mailbox, the embedding entry point and the link decoder.
 
 Only the configurations the ported slices implement are accepted
-(`check_supported`: TGN or APAN with the GRU cell and the kernels, PRES on
-or off, either embedding path, any pipeline depth); every other option
-raises NotImplementedError naming the ROADMAP item that ports it."""
+(`check_supported`: TGN or APAN with the GRU or rnn cell and the kernels,
+PRES on or off with either Eq. 7 scale, the last or mean aggregator,
+either embedding path, any pipeline depth); every other option raises
+NotImplementedError naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -64,9 +65,9 @@ class MDGNNConfig:
 _SUPPORTED = {
     "variant": (("tgn", "apan"), "Queue 1 item 11 (JODIE's projection "
                                  "embedding)"),
-    "memory_cell": (("gru",), "Queue 1 item 11 (the rnn cell)"),
-    "aggregator": (("last",), "Queue 1 item 11 (aggregator='mean')"),
-    "pres_scale": (("count",), "Queue 1 item 11 (pres_scale='time')"),
+    "memory_cell": (("gru", "rnn"), "Queue 1 item 11"),
+    "aggregator": (("last", "mean"), "Queue 1 item 11"),
+    "pres_scale": (("count", "time"), "Queue 1 item 11"),
     "anchor_fraction": ((1.0,), "Queue 1 item 11 (the anchor mask)"),
     "pres_buckets": ((None,), "Queue 1 item 11 (pres_buckets)"),
     "mem_dtype": (("float32",), "Queue 1 item 11 (mem_dtype='bfloat16')"),
@@ -108,8 +109,8 @@ def param_shapes(cfg: MDGNNConfig) -> dict:
         "time": {"w": (cfg.d_time,), "b": (cfg.d_time,)},
         "msg": {"w1": (d_in_msg, cfg.d_msg), "b1": (cfg.d_msg,),
                 "w2": (cfg.d_msg, cfg.d_msg), "b2": (cfg.d_msg,)},
-        "mem": {"w": (cfg.d_msg, 3 * cfg.d_mem),
-                "u": (cfg.d_mem, 3 * cfg.d_mem), "b": (3 * cfg.d_mem,)},
+        "mem": modules.MEMORY_CELL_SHAPES[cfg.memory_cell](cfg.d_msg,
+                                                           cfg.d_mem),
         "emb": {},
         "dec": {"w1": (2 * e, e), "b1": (e,), "w2": (e, 1), "b2": (1,)},
         "node_cls": {"w1": (e, e), "b1": (e,), "w2": (e, 1), "b2": (1,)},
@@ -235,34 +236,55 @@ def memory_inputs(params, cfg: MDGNNConfig, mem: MemoryState,
     """MESSAGE stage + per-occurrence bookkeeping shared by the cell-based
     memory update below and the fused-kernel path
     (train/loop.py::_fused_memory_update): (nodes, times, msgs, mask,
-    selected)."""
+    selected). With aggregator="mean" every occurrence carries its node's
+    mean message of the batch."""
     nodes, times, msgs, mask = compute_messages(params, cfg, mem, batch)
+    if cfg.aggregator == "mean":
+        mean_n, _ = batching.mean_per_node(nodes, msgs, mask, cfg.n_nodes)
+        msgs = mean_n.index_select(0, nodes)
     selected = _last_occurrence_flags(nodes, times, mask)
     return nodes, times, msgs, mask, selected
 
 
+def memory_cell(cfg: MDGNNConfig, p, x, h):
+    """The configured memory cell on rows x (M, d_msg), h (M, d_mem): the
+    `gru_cell` kernel for the GRU, the plain `modules.rnn_cell` for the rnn
+    cell (the JAX package has no kernel for it)."""
+    if cfg.memory_cell == "gru":
+        return kops.gru_cell(x, h, p["w"], p["u"], p["b"],
+                             mode=cfg.kernels_mode)
+    return modules.rnn_cell(p, x, h)
+
+
 def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
-                  batch: EventBatch):
-    """Batch-parallel memory transition (Alg. 1): the `gru_cell` kernel
-    runs on the 2b endpoint occurrences and only each node's selected
-    (chronologically last) occurrence is written back, IN PLACE on `mem`.
-    Autograd records the write, so the new rows pass their gradient on to
-    whatever later reads `mem.mem`. Finding the selected occurrences is one
-    host sync on CUDA. Returns (mem, info) with info carrying the rows the
-    coherence loss needs."""
+                  batch: EventBatch, defer_write: bool = False):
+    """Batch-parallel memory transition: the memory cell runs on the 2b
+    endpoint occurrences and only each node's selected (chronologically
+    last) occurrence is written back, IN PLACE on `mem`. Autograd records
+    the write, so the new rows pass their gradient on to whatever later
+    reads `mem.mem`. With `defer_write` (PRES: `loop._apply_pres` writes the
+    fused rows instead) only `last_update` is written, so no row is written
+    twice. Finding the selected occurrences is one host sync on CUDA.
+
+    Returns (mem, info). info carries the rows PRES and the coherence loss
+    need, `t_prev` (with pres_scale="time": the occurrences' last-update
+    times, gathered BEFORE the write, since the scale is 0 for every node
+    read after it; else None) and `written` (the positions of the selected
+    occurrences)."""
     nodes, times, msgs, mask, selected = memory_inputs(params, cfg, mem,
                                                        batch)
     h_prev = mem.mem[nodes]
-    p = params["mem"]
-    new_rows = kops.gru_cell(msgs, h_prev, p["w"], p["u"], p["b"],
-                             mode=cfg.kernels_mode)
+    t_prev = (mem.last_update[nodes] if cfg.pres_scale == "time"
+              else None)
+    new_rows = memory_cell(cfg, params["mem"], msgs, h_prev)
     keep = torch.nonzero(selected)[:, 0]
     rows = nodes.index_select(0, keep)
-    mem.mem[rows] = new_rows.index_select(0, keep)
+    if not defer_write:
+        mem.mem[rows] = new_rows.index_select(0, keep)
     mem.last_update[rows] = times.index_select(0, keep)
     info = {"nodes": nodes, "selected": selected, "mask": mask,
-            "s_prev": h_prev, "s_meas": new_rows, "t_now": times,
-            "msgs": msgs}
+            "s_prev": h_prev, "s_meas": new_rows, "t_prev": t_prev,
+            "t_now": times, "msgs": msgs, "written": keep}
     return mem, info
 
 

@@ -1,6 +1,7 @@
 """MDGNN building blocks (counterpart of `repro/models/modules.py`): the
-memory table, the cosine time encoding, the MESSAGE MLP and the GRU cell.
-Weights keep the JAX layout: `x @ W` with W of shape (in, out)."""
+memory table, the cosine time encoding, the MESSAGE MLP and the memory
+cells (GRU and the vanilla RNN). Weights keep the JAX layout: `x @ W` with
+W of shape (in, out)."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,3 +55,24 @@ def gru_cell(params, x, h):
     z = torch.sigmoid(zx + zh)
     n = torch.tanh(nx + r * nh)
     return (1 - z) * h + z * n
+
+
+def gru_shapes(d_in: int, d_hidden: int) -> dict:
+    return {"w": (d_in, 3 * d_hidden), "u": (d_hidden, 3 * d_hidden),
+            "b": (3 * d_hidden,)}
+
+
+def rnn_shapes(d_in: int, d_hidden: int) -> dict:
+    return {"w": (d_in, d_hidden), "u": (d_hidden, d_hidden),
+            "b": (d_hidden,)}
+
+
+def rnn_cell(params, x, h):
+    """The vanilla RNN memory cell tanh(x W + h U + b). The JAX package has
+    no kernel for it, so its products are plain matrix products."""
+    return torch.tanh(x @ params["w"] + h @ params["u"] + params["b"])
+
+
+# cfg.memory_cell -> its parameter shapes of (d_in, d_hidden); the cell
+# itself is picked by mdgnn.memory_cell (the GRU runs as a kernel)
+MEMORY_CELL_SHAPES = {"gru": gru_shapes, "rnn": rnn_shapes}

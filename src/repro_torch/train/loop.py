@@ -6,8 +6,10 @@ coherence smoothing term (Eq. 10) joins the loss. The memory maintenance
 here (`memory_and_pres`, `maintain_state`) is shared with serving.
 
 Kernel routing (cfg.use_kernels, required by mdgnn.check_supported):
-PRES runs the whole memory step as one `memory_update_table` call; without
-PRES the memory cell is the `gru_cell` kernel; every layer of the
+PRES with the GRU cell runs the whole memory step as one
+`memory_update_table` call; otherwise the memory cell runs on its own
+(the `gru_cell` kernel, or the plain rnn cell) and, with PRES, the
+`pres_filter` kernel fuses its rows with the prediction; every layer of the
 deduplicated TGN embedding is `embed_attn`, and the attention of the dense
 TGN path and of APAN is `neighbor_attn`. Each is differentiable
 (kernels/autodiff.py): the kernel forward, a backward through its plain
@@ -41,14 +43,34 @@ from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 def _pres_scale_and_ids(cfg: MDGNNConfig, info):
-    """Eq. 7 extrapolation scale ("count": the node's valid-occurrence
-    count in the batch) and the tracker ids of the occurrences."""
+    """Eq. 7 extrapolation scale and the tracker ids of the occurrences.
+    "count": the node's valid-occurrence count in the batch; "time" (the
+    paper's t2 - t1): max(t_now - t_prev, 0), t_prev read before the
+    memory stage wrote `last_update`."""
     nodes, mask = info["nodes"], info["mask"]
+    if cfg.pres_scale == "time":
+        return torch.clamp(info["t_now"] - info["t_prev"], min=0.0), nodes
     keys = torch.where(mask, nodes, torch.full_like(nodes, cfg.n_nodes))
     counts = torch.zeros(cfg.n_nodes + 1, dtype=torch.float32,
                          device=nodes.device)
     counts.index_add_(0, keys, mask.to(torch.float32))
     return counts[nodes], nodes
+
+
+def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
+    """Fuse the measured rows of the cell route with the GMM prediction
+    through the `pres_filter` kernel (Eq. 7 -> 8 -> 9) and write each
+    node's fused row of its selected occurrence into the table, IN PLACE
+    on `mem` (autograd records the write). Returns (mem, fused, delta)."""
+    scale, pres_ids = _pres_scale_and_ids(cfg, info)
+    dmean = pres.mixture_mean(pres_state, pres_ids)
+    gamma = torch.sigmoid(params["pres"]["gamma_logit"])
+    fused, delta = kops.pres_filter(
+        info["s_prev"], info["s_meas"], dmean, scale, gamma,
+        clip=cfg.pres_clip, delta_mode=cfg.delta_mode, mode=cfg.kernels_mode)
+    keep = info["written"]
+    mem.mem[info["nodes"].index_select(0, keep)] = fused.index_select(0, keep)
+    return mem, fused, delta
 
 
 def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
@@ -68,8 +90,10 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     mem = state["memory"]
     nodes, times, msgs, mask, selected = mdgnn.memory_inputs(params, cfg,
                                                              mem, batch)
+    # the "time" scale's t_prev before the kernel writes last_update in place
+    t_prev = mem.last_update[nodes] if cfg.pres_scale == "time" else None
     info = {"nodes": nodes, "selected": selected, "mask": mask,
-            "t_now": times, "msgs": msgs}
+            "t_prev": t_prev, "t_now": times, "msgs": msgs}
     scale, pres_ids = _pres_scale_and_ids(cfg, info)
     dmean = pres.mixture_mean(state["pres"], pres_ids)
     gamma = torch.sigmoid(params["pres"]["gamma_logit"])
@@ -98,14 +122,21 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
 
 def memory_and_pres(params, cfg: MDGNNConfig, state, batch: EventBatch):
     """MEMORY stage + PRES fusion, shared by the train, eval and serve
-    steps. With PRES: the fused `memory_update_table` pass. Without: the
-    cell-based `mdgnn.memory_update` through the `gru_cell` kernel; the
-    fused rows are then the measurements and the deltas are zero.
+    steps. With PRES and the GRU cell: the fused `memory_update_table`
+    pass. Otherwise the cell-based `mdgnn.memory_update` (the `gru_cell`
+    kernel or the rnn cell) and, with PRES, `_apply_pres` (the
+    `pres_filter` kernel), the cell's rows left unwritten; without PRES the
+    fused rows are the measurements and the deltas are zero.
     Returns (mem, info, fused_rows, deltas)."""
     mdgnn.check_supported(cfg)
-    if cfg.use_pres:
+    if cfg.use_pres and cfg.memory_cell == "gru":
         return _fused_memory_update(params, cfg, state, batch)
-    mem2, info = mdgnn.memory_update(params, cfg, state["memory"], batch)
+    mem2, info = mdgnn.memory_update(params, cfg, state["memory"], batch,
+                                     defer_write=cfg.use_pres)
+    if cfg.use_pres:
+        mem2, fused, delta = _apply_pres(params, cfg, mem2, info,
+                                         state["pres"])
+        return mem2, info, fused, delta
     fused = info["s_meas"]
     return mem2, info, fused, torch.zeros_like(fused)
 

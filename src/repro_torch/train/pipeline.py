@@ -60,17 +60,27 @@ class PipelineState:
                                 device=mem.mem.device))
 
 
-def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState):
+def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
+                     live_last_update=None):
     """The table the embedding stage reads: the snapshot rows extrapolated
     over their staleness gap by Eq. 7, through the `pres_predict` kernel
-    over the whole (N, D) snapshot, with scale = the pending count
-    (cfg.pres_scale "count", the only scale ported). Rows with nothing in
-    flight have scale 0 and pass unchanged; without PRES the trackers are
-    empty, the mixture mean is 0 and this is the raw snapshot. The mixture
-    mean is computed on views of the N tracker rows, not a gather."""
+    over the whole (N, D) snapshot. The scale follows cfg.pres_scale:
+    "count" the pending count, "time" max(live_last_update -
+    read_last_update, 0), where `live_last_update` is the live table's
+    (only that scale reads it). Rows with nothing in flight have scale 0 and
+    pass unchanged; without PRES the trackers are empty, the mixture mean
+    is 0 and this is the raw snapshot. The mixture mean is computed on
+    views of the N tracker rows, not a gather."""
     n = pstate.read_mem.shape[0]
+    if cfg.pres_scale == "time":
+        if live_last_update is None:
+            raise ValueError("pres_scale='time' needs the live last_update")
+        scale = torch.clamp(live_last_update - pstate.read_last_update,
+                            min=0.0)
+    else:
+        scale = pstate.pending[:n]
     dmean = pres.mixture_mean_rows(pres_state)
-    return kops.pres_predict(pstate.read_mem, dmean, pstate.pending[:n],
+    return kops.pres_predict(pstate.read_mem, dmean, scale,
                              clip=cfg.pres_clip, mode=cfg.kernels_mode)
 
 
@@ -112,7 +122,8 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
             info["nodes"], n))
         pstate.pending.index_add_(0, keys, mask.to(torch.float32))
         # EMBEDDING stage, on the filled snapshot
-        read_tab = stale_read_table(cfg, state["pres"], pstate)
+        read_tab = stale_read_table(cfg, state["pres"], pstate,
+                                    mem2.last_update)
         embed_state = dict(state2, memory=MemoryState(
             mem=read_tab, last_update=pstate.read_last_update))
         logit_p, logit_n = loop_lib.endpoint_logits(params, cfg, embed_state,

@@ -192,9 +192,10 @@ def test_stream_chunk_byte_identical(lo, hi):
 
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
-    for change in (dict(variant="jodie"), dict(memory_cell="rnn"),
-                   dict(pres_scale="time"), dict(n_shards=2),
-                   dict(use_kernels=False), dict(scan_chunk=2)):
+    for change in (dict(variant="jodie"), dict(pres_buckets=8),
+                   dict(mem_dtype="bfloat16"), dict(anchor_fraction=0.5),
+                   dict(n_shards=2), dict(use_kernels=False),
+                   dict(scan_chunk=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmdgnn.check_supported(dataclasses.replace(cfg, **change))
     state = tmdgnn.init_state(cfg, "cpu")
