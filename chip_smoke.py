@@ -11,7 +11,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
    large time gaps, D % 4 != 0, a misaligned start, K = 1, the K and E
-   limits, Din != D, clip bounds hit exactly, both PRES delta modes).
+   limits, Din != D, clip bounds hit exactly, both PRES delta modes; for
+   flash_attn S = 1, ragged S, T != S, windows, n_rep 1/2/4, D up to 256,
+   fp32 and bf16 (held within one bf16 ulp of the fp32 plain version);
+   for ssd_chunk L = 1, ragged L, N = 256 with P = 257, a large negative
+   lcum).
 4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk. The same replay then runs
@@ -46,17 +50,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    at PRODUCTION widths on the first 41,000 stream-small events (b=1000),
    the first 3 steps' losses compared with the plain path; step time,
    events/s and peak device memory.
-9. kernels: each kernel and its plain version timed (CUDA events, median)
+9. zoo-qwen3 / zoo-xlstm: the model zoo's prefill at full width (qwen3-0.6b
+   at B=2, S=8192; xlstm-350m at B=2, S=2048; random weights and tokens
+   from --seed) in float32 through the kernels, counted (flash_attn once a
+   layer, 28; ssd_chunk once a chunk and mLSTM layer, 168), against the
+   plain route; then timed in the published bfloat16 (tokens/s, peak
+   memory) and 16 greedy decode steps against an S-slot cache (ms a step;
+   decode launches no kernel). cli-zoo: `python -m repro_torch.launch.serve
+   --zoo` for both archs.
+10. kernels: each kernel and its plain version timed (CUDA events, median)
    on the largest inputs it received in the phase that captured them (the
    serve phases' probe after their counters were read; gru_cell during
    the Alg. 1 train phases; pres_predict, neighbor_attn, pres_filter and
    memory_update in a probe of their train phases' path on the trained
-   state), compared there, set beside the card's bound for that work and,
+   state; flash_attn and ssd_chunk in the zoo's bf16 prefill), compared
+   there, set beside the card's bound for that work and,
    where one PyTorch call computes the same function, beside that call's
    time (memory_update also beside gru_cell then pres_filter).
 
-Every serve and train phase names the kernels its path must launch; any
-other kernel launched fails it. The launch counters are zeroed just
+Every serve, train and zoo phase names the kernels its path must launch;
+any other kernel launched fails it. The launch counters are zeroed just
 before the phase drives its path and read just after, and the memory
 stage's kernel must have launched once a step or fold. `--only` runs some
 phases; with no arguments it runs them all.
@@ -78,9 +91,11 @@ import warnings
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor FLOP/s
+# and dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 # each output: |kernel - plain| <= TOL * max(1, max|that plain output|), the
 # fp32 sums running in another order; the outputs listed in EXACT (by
 # position) are copies, not sums, and must be equal (memory_update_table's
@@ -89,7 +104,8 @@ PEAK_FP32 = 67e12
 # separate kernels do, so their outputs are held exactly too)
 TOL = {"memory_update_table": 1e-5, "embed_attn": 1e-4, "link_score": 1e-4,
        "gru_cell": 1e-5, "pres_predict": 0.0, "neighbor_attn": 1e-4,
-       "pres_filter": 0.0, "memory_update": 1e-5}
+       "pres_filter": 0.0, "memory_update": 1e-5, "flash_attn": 1e-5,
+       "ssd_chunk": 1e-5}
 EXACT = {"memory_update_table": (1,), "pres_predict": (0,),
          "pres_filter": (0, 1)}
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -100,7 +116,19 @@ SOURCES = {"memory_update_table": CSRC + "memory_update.cu",
            "pres_predict": CSRC + "pres_predict.cu",
            "neighbor_attn": CSRC + "neighbor_attn.cu",
            "pres_filter": CSRC + "pres_filter.cu",
-           "memory_update": CSRC + "memory_update.cu"}
+           "memory_update": CSRC + "memory_update.cu",
+           "flash_attn": CSRC + "flash_attn.cu",
+           "ssd_chunk": CSRC + "ssd_chunk.cu"}
+# the model zoo's kernels (prefill only) and the full-width prefill each
+# zoo phase drives: batch, sequence, and the launches of its kernel (one
+# per layer for qwen3's 28 attention layers, one per chunk for xlstm's 21
+# mLSTM layers over 8 chunks of 256)
+ZOO_KERNELS = ("flash_attn", "ssd_chunk")
+ZOO = {"zoo-qwen3": ("qwen3-0.6b", "flash_attn", 2, 8192, 28),
+       "zoo-xlstm": ("xlstm-350m", "ssd_chunk", 2, 2048, 21 * 8)}
+# the zoo's last-position prefill logits, kernel route against the plain
+# route, both float32: |kernel - plain| <= ZOO_TOL * max(1, max|plain|)
+ZOO_TOL = 1e-4
 SERVE_KERNELS = ("memory_update_table", "embed_attn", "link_score")
 APAN_SERVE_KERNELS = ("memory_update_table", "neighbor_attn", "link_score")
 RNN_SERVE_KERNELS = ("pres_filter", "embed_attn", "link_score")
@@ -164,13 +192,54 @@ def time_ms(fn, reps=None):
     return times[len(times) // 2]
 
 
-def work(name, args):
-    """(bytes, flops) the call needs on these inputs: each input read once,
+def attn_pairs(s, t, causal, window):
+    """(query, key) pairs the causal / window mask leaves valid."""
+    import numpy as np
+    i = np.arange(s)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(name, args, kw=None):
+    """(bytes, flops) the call needs on these inputs, flops either a count
+    at the fp32 peak or {peak: count}: each input read once,
     each output written once, counting only the rows and slots the data
-    uses (valid gathers, selected writes, valid attention slots). The
-    attention's K/V projection is linear, so its table part is counted once
-    per distinct referenced row and only its time-encoding part per slot."""
+    uses (valid gathers, selected writes, valid attention slots or pairs).
+    The attention's K/V projection is linear, so its table part is counted
+    once per distinct referenced row and only its time-encoding part per
+    slot."""
+    kw = kw or {}
     f = 4
+    if name == "flash_attn":
+        # q k and p v (2 FLOPs a multiply-add, D each) and the softmax's
+        # scale, max, exp and sum on each valid pair. With bf16 inputs the
+        # products may run on bf16 tensor cores (q k exactly, with fp32
+        # accumulation; p v as a bf16 flash kernel does), the softmax on
+        # the fp32 units beside them
+        import torch
+        q, k, _ = args
+        g, s, d = q.shape
+        gkv, t = k.shape[:2]
+        pairs = attn_pairs(s, t, kw.get("causal", True), kw.get("window"))
+        nbytes = (2 * g * s * d + 2 * gkv * t * d) * q.element_size()
+        if q.dtype == torch.bfloat16:
+            return nbytes, {PEAK_BF16: g * pairs * 4 * d,
+                            PEAK_FP32: g * pairs * 4}
+        return nbytes, g * pairs * (4 * d + 4)
+    if name == "ssd_chunk":
+        # per group: q k^T and the decayed scores on the L(L+1)/2 pairs
+        # j <= i (2N + 2), their product with v (2P), the carry-in
+        # (q * exp(lcum)) h0 and the state update (k * w)^T v (2LNP each,
+        # plus the scalings), exp(ltot) h0 + (2NP)
+        q, _, v, _, _ = args
+        g, ll, n = q.shape
+        p = v.shape[2]
+        tri = ll * (ll + 1) // 2
+        flops = g * (tri * (2 * n + 2 + 2 * p) + 4 * ll * n * p
+                     + 4 * ll * n + 2 * n * p)
+        nbytes = g * (2 * ll * n + 2 * ll * p + ll + 2 * n * p) * f
+        return nbytes, flops
     if name == "memory_update_table":
         table, _, x, g, w_idx, _, w, u, b, dm, _, _ = args
         n, d = table.shape
@@ -242,6 +311,13 @@ def work(name, args):
 
 
 def shape_of(name, a):
+    if name == "flash_attn":
+        return (f"G={a[0].shape[0]} Gkv={a[1].shape[0]} S={a[0].shape[1]} "
+                f"T={a[1].shape[1]} D={a[0].shape[2]} "
+                f"{str(a[0].dtype).replace('torch.', '')}")
+    if name == "ssd_chunk":
+        return (f"G={a[0].shape[0]} L={a[0].shape[1]} N={a[0].shape[2]} "
+                f"P={a[2].shape[2]}")
     if name == "memory_update_table":
         return f"M={a[2].shape[0]} D={a[0].shape[1]} Din={a[2].shape[1]}"
     if name == "memory_update":
@@ -279,9 +355,14 @@ def memory_stage_kernel(cfg):
     return "gru_cell" if cfg.memory_cell == "gru" else None
 
 
-def bound(name, args):
-    nbytes, flops = work(name, args)
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def bound(name, args, kw=None):
+    """The least ms the card could take: bytes over the memory rate or
+    the operations of the slowest unit over its peak, the larger."""
+    nbytes, flops = work(name, args, kw)
+    if not isinstance(flops, dict):
+        flops = {PEAK_FP32: flops}
+    tb = nbytes / PEAK_BYTES * 1e3
+    tf = max(n / peak * 1e3 for peak, n in flops.items())
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -299,12 +380,38 @@ def run_pair(name, args, kw):
     return got, want
 
 
+def bf16_excess(got, want32, tol):
+    """The largest |got - want32| beyond one bf16 ulp of want32 plus the
+    fp32 tolerance tol * max(1, max|want32|) (the reference rounds a value
+    that is itself within the fp32 tolerance), and the largest
+    |got - want32|: a bf16 output agrees when the first is <= 0."""
+    import torch
+    got, want32 = got.float(), want32.float()
+    mag = want32.abs().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got - want32).abs()
+    slack = tol * max(1.0, float(want32.abs().max()))
+    return float((diff - ulp - slack).max()), float(diff.max())
+
+
 def check_kernel(name, args, kw, label):
     """Each output of the kernel against the plain version's, at its own
-    scale; returns the largest |kernel - plain| over all outputs."""
+    scale; returns the largest |kernel - plain| over all outputs. A bf16
+    output is held within one bf16 ulp (plus the fp32 tolerance) of the
+    plain version computed in fp32 from the same (bf16) inputs."""
     import torch
+    from repro_torch.kernels import ops
     got, want = run_pair(name, args, kw)
     torch.cuda.synchronize()
+    if got[0].dtype == torch.bfloat16:
+        want32 = ops.dispatch(name, *[a.float() for a in args],
+                              mode="oracle", **kw)
+        require(bool(torch.isfinite(got[0].float()).all()),
+                f"{name} [{label}]: output is not finite")
+        excess, err = bf16_excess(got[0], want32, TOL[name])
+        require(excess <= 0, f"{name} [{label}]: bf16 output beyond one ulp "
+                f"of the fp32 plain version (max|diff| {err:.3g})")
+        return err
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
@@ -430,6 +537,38 @@ def edge_cases(dev):
             cases.append(("memory_update", args,
                           dict(clip=1.0, delta_mode=mode),
                           f"M={m} D={d} Din={din} {mode}"))
+    # flash_attn: S = 1, ragged S and T (not multiples of the 64-row
+    # tiles), T != S both ways, windows (a window that leaves late rows
+    # with no valid key when T < S: the mean of v), n_rep 1 / 2 / 4, D 40,
+    # 64, 128 and 256, non-causal, fp32 and bf16
+    for g, gkv, s_, t_, d, causal, window in [
+            (1, 1, 1, 1, 64, True, None), (4, 2, 1, 37, 128, False, None),
+            (2, 2, 100, 100, 64, True, None), (8, 2, 130, 130, 128, True, 50),
+            (4, 1, 64, 200, 64, True, None), (4, 4, 200, 64, 40, True, None),
+            (2, 1, 200, 50, 64, True, 10), (6, 3, 257, 257, 256, False, 70),
+            (32, 16, 300, 300, 128, True, None),
+            (3, 3, 129, 65, 16, False, None)]:
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t(f(g, s_, d, sc=0.5)).to(dt),
+                    t(f(gkv, t_, d, sc=0.5)).to(dt),
+                    t(f(gkv, t_, d)).to(dt)]
+            cases.append(("flash_attn", args,
+                          dict(causal=causal, window=window),
+                          f"G={g} Gkv={gkv} S={s_} T={t_} D={d} "
+                          f"causal={causal} window={window} "
+                          f"{str(dt).replace('torch.', '')}"))
+    # ssd_chunk: L = 1, ragged L (not a multiple of the 16-row and 32-row
+    # tiles), the xLSTM widths N = 256, P = 257 (and its reduced N = 64,
+    # P = 65), a large negative lcum (exp underflows to 0), P above 256
+    for g, ll, n, p, lsc in [(1, 1, 8, 9, 0.05), (3, 100, 16, 17, 0.05),
+                             (8, 256, 256, 257, 0.05), (2, 300, 64, 65, 0.05),
+                             (2, 256, 256, 257, 4.0), (1, 40, 33, 400, 0.5)]:
+        lcum = np.cumsum(-np.abs(f(g, ll, sc=lsc)), -1).astype(np.float32)
+        args = [t(f(g, ll, n, sc=0.1)), t(f(g, ll, n, sc=0.1)),
+                t(f(g, ll, p, sc=0.5)), t(lcum), t(f(g, n, p, sc=0.5))]
+        cases.append(("ssd_chunk", args, {},
+                      f"G={g} L={ll} N={n} P={p} min_lcum="
+                      f"{float(lcum.min()):.1f}"))
     return cases
 
 
@@ -468,6 +607,8 @@ class Capture:
             return args[0].numel()
         if name == "memory_update":
             return args[0].shape[0]
+        if name in ZOO_KERNELS:
+            return args[0].numel()
         return args[0].shape[0] * args[2].shape[1]
 
     def __enter__(self):
@@ -1042,6 +1183,151 @@ def op_phase(label, name, inputs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases zoo-qwen3 / zoo-xlstm / cli-zoo: the model zoo at full width
+# ---------------------------------------------------------------------------
+
+
+def _last_logits(model, params, tokens):
+    """forward(...)[:, -1] in float32 (a copy: the (B, S, V) logits go)."""
+    return model.forward(params, {"tokens": tokens})[:, -1].float().clone()
+
+
+def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
+    """Prefill at full width: the published config with random weights
+    from `seed`, B x S random tokens. (1) float32 through the kernel route,
+    counted: the phase's kernel exactly once a layer (flash_attn) or a
+    chunk and mLSTM layer (ssd_chunk), no other kernel; the last
+    position's logits against the plain route (kernels_mode="oracle")
+    within ZOO_TOL. (2) the published bfloat16 timed: median of 3
+    device-synced prefills (after one warm-up that captures the kernel's
+    inputs for its row), tokens/s and peak device memory, the same
+    launches a prefill. (3) `decode_steps` greedy decode steps from the
+    prefill's next token against a cache of S slots: ms a step, and no
+    kernel launched. Returns (launch counts of (1), captured inputs,
+    summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.archs.api import get_model
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.utils.tree import tree_leaves
+    arch, kernel, b, s, per_prefill = ZOO[label]
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = get_model(cfg32)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = model.init(gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    summary = {"arch": arch, "batch": b, "seq": s, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "params": n_params}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = _last_logits(model, params, tokens)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_launches(label, counts, (kernel,))
+        require(counts[kernel] == per_prefill, f"{label}: {kernel} launched "
+                f"{counts[kernel]} times in one prefill, expected "
+                f"{per_prefill}")
+        want = _last_logits(get_model(dataclasses.replace(
+            cfg32, kernels_mode="oracle")), params, tokens)
+        require(tuple(got.shape) == (b, cfg.vocab)
+                and bool(torch.isfinite(got).all()),
+                f"{label}: bad prefill logits {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        lim = ZOO_TOL * max(1.0, float(want.abs().max()))
+        log(f"[{label}] fp32 prefill vs plain route: max|diff| {err:.3g} "
+            f"(limit {lim:.3g}); argmax agree "
+            f"{bool((got.argmax(-1) == want.argmax(-1)).all())}")
+        require(err <= lim, f"{label}: prefill logits differ from the plain "
+                f"route by {err:.3g} > {lim:.3g}")
+        summary.update(fp32_vs_plain=err, fp32_limit=lim)
+        del got, want
+
+        bf = get_model(cfg)                     # the published bfloat16
+        # ssd_chunk's row takes the prefill's last launch, whose carry-in
+        # h0 is nonzero; flash_attn's launches all take alike inputs
+        with Capture(names=[kernel], latest=kernel == "ssd_chunk") as cap:
+            _last_logits(bf, params, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = _last_logits(bf, params, tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts_bf = ops.launch_counts()
+        check_launches(label, counts_bf, (kernel,))
+        require(counts_bf[kernel] == 3 * per_prefill,
+                f"{label}: bf16 prefills launched {kernel} "
+                f"{counts_bf[kernel]} times")
+        require(bool(torch.isfinite(last).all()),
+                f"{label}: bf16 prefill logits not finite")
+        med = float(np.median(secs))
+        summary.update(prefill_s=secs, prefill_s_median=med,
+                       prefill_tokens_per_s=b * s / med,
+                       prefill_peak_mem_mb=torch.cuda.max_memory_allocated()
+                       / 1e6)
+
+        state = bf.init_decode_state(b, s, dev)
+        tok = last.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step_ms = []
+        for pos in range(decode_steps):
+            t0 = time.perf_counter()
+            logits, state = bf.decode_step(params, state, tok, pos)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts_dec = ops.launch_counts()
+        require(not any(counts_dec.values()),
+                f"{label}: decode launched a kernel: {counts_dec}")
+        require(tuple(logits.shape) == (b, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"{label}: bad decode logits")
+        summary.update(decode_steps=decode_steps, decode_cache=s,
+                       decode_ms_first=step_ms[0],
+                       decode_ms_median=float(np.median(step_ms[1:])),
+                       decode_tokens_per_s=b * 1e3
+                       / float(np.median(step_ms[1:])))
+        log(f"[{label}] {json.dumps(summary)}")
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_
+            with prof_(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _last_logits(bf, params, tokens)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            _report_profile(label, prof, wall_us, "one bf16 prefill")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts, cap.best, summary
+
+
+def cli_zoo_phase(label, arch, steps):
+    """`python -m repro_torch.launch.serve --zoo <arch>` on the card (its
+    default device): greedy decode of the reduced config, which launches
+    no kernel (the zoo's kernels run in the prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    ops.reset_launch_counts()
+    toks = serve_cli.main(["--zoo", arch, "--steps", str(steps)])
+    counts = ops.launch_counts()
+    require(not any(counts.values()),
+            f"{label}: the zoo decode CLI launched a kernel: {counts}")
+    require(tuple(toks.shape) == (2, steps), f"{label}: bad tokens")
+    return {"tokens": toks[0].tolist()}
+
+
 def library_gru_cell(args):
     """torch.gru_cell computing the port's cell on the same inputs, as the
     kernel's yardstick (never on the path). PyTorch's z weights h, the
@@ -1078,8 +1364,20 @@ def library_neighbor_attn(args):
             [q, k, v, valid])
 
 
+def library_flash_attn(args):
+    """scaled_dot_product_attention (causal, GQA) on the same tensors laid
+    out as (1, heads, S, D), as the kernel's yardstick (never on the
+    path). Only the path's inputs reach it: causal, no window, S = T."""
+    import torch.nn.functional as F
+    q, k, v = args
+    q4, k4, v4 = q[None], k[None], v[None]
+    return (lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True)[0], [q, k, v])
+
+
 LIBRARY = {"gru_cell": library_gru_cell,
-           "neighbor_attn": library_neighbor_attn}
+           "neighbor_attn": library_neighbor_attn,
+           "flash_attn": library_flash_attn}
 
 # phase groups, in the order they run; `--only` picks some
 PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
@@ -1088,13 +1386,15 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-config-dense", "train-config-apan", "train-config-rnn",
           "train-config-rnn-std", "train-config-time", "cli-new", "cli-time",
           "train-production-pipe", "train-production-dense",
-          "train-production-apan", "train-production-rnn")
+          "train-production-apan", "train-production-rnn", "zoo-qwen3",
+          "zoo-xlstm", "cli-zoo")
 
 
 def kernel_row(name, spec, phase, inputs, counts):
     """Check the kernel on the inputs its phase captured, time it, its
     plain version and (where one exists) the library yardstick, and set
     the bound beside them."""
+    import torch
     from repro_torch.kernels import ops
     _, a, kw = inputs[name]
     err = check_kernel(name, a, kw, f"{phase} inputs")
@@ -1105,12 +1405,22 @@ def kernel_row(name, spec, phase, inputs, counts):
     library_ms = None
     if name in LIBRARY:
         lib, lib_args = LIBRARY[name](copies)
-        want = ops.dispatch(name, *lib_args, mode="oracle", **kw)
-        lib_err = float((lib() - want).abs().max())
-        require(lib_err <= TOL[name] * max(1.0, float(want.abs().max())),
-                f"{name}: the library yardstick differs by {lib_err}")
+        out = lib()
+        if out.dtype == torch.bfloat16:
+            # SDPA rounds its probabilities to bf16 before the product
+            # with v: held to 2^-6 of the output's scale (a few bf16 ulps;
+            # the kernel, which keeps them in fp32, to one ulp)
+            want32 = ops.dispatch(name, *[x.float() for x in lib_args],
+                                  mode="oracle", **kw)
+            lib_err = float((out.float() - want32).abs().max())
+            ok = lib_err <= 2 ** -6 * max(1.0, float(want32.abs().max()))
+        else:
+            want = ops.dispatch(name, *lib_args, mode="oracle", **kw)
+            lib_err = float((out - want).abs().max())
+            ok = lib_err <= TOL[name] * max(1.0, float(want.abs().max()))
+        require(ok, f"{name}: the library yardstick differs by {lib_err}")
         library_ms = time_ms(lib)
-    b_ms, b_by = bound(name, a)
+    b_ms, b_by = bound(name, a, kw)
     row = {"name": name, "route": "cuda", "source": SOURCES[name],
            "replaces": spec.replaces, "launches": counts[name],
            "max_abs_err": err, "tol": TOL[name], "ms": ms,
@@ -1138,6 +1448,8 @@ def main(argv=None):
                     help="also profile TICKS query+fold rounds at the end "
                          "of each serve phase, and TICKS train steps after "
                          "each train phase")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the zoo phases' weights and tokens")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (default: all): "
                          + ", ".join(PHASES) + "; the kernel rows then "
@@ -1353,16 +1665,32 @@ def main(argv=None):
         train("train-production-rnn", rp(pcfg, **rnn), "production",
               rnn_path, capture=("pres_filter",))
 
-    # 9. kernels on the inputs their phases handed them
+    # 9. the model zoo at full width: prefill (the zoo's kernels) and
+    # decode, then the decode CLI
+    zoo_sum = {}
+    for label in ZOO:
+        if label in only:
+            counts, inputs, zoo_sum[label] = timed(
+                label, zoo_phase, label, dev, args.seed,
+                profile=args.profile)
+            keep((ZOO[label][1],), "zoo", inputs, counts)
+    if "cli-zoo" in only:
+        for arch in ("qwen3-0.6b", "xlstm-350m"):
+            zoo_sum[f"cli-zoo-{arch}"] = timed(
+                f"cli-zoo-{arch}", cli_zoo_phase, f"cli-zoo-{arch}", arch,
+                16)
+
+    # 10. kernels on the inputs their phases handed them
     rows, more_rows = [], []
     for name, spec_ in ops.REGISTRY.items():
         for phase, (inputs, counts) in captured.get(name, {}).items():
             row = kernel_row(name, spec_, phase, inputs, counts)
-            (rows if phase == "config" else more_rows).append(row)
+            (rows if phase in ("config", "zoo") else more_rows).append(row)
     if only == set(PHASES):
         names = sorted(ops.REGISTRY)
         require(sorted(r["name"] for r in rows) == names
-                and sorted({r["name"] for r in more_rows}) == names,
+                and sorted({r["name"] for r in more_rows})
+                == sorted(set(names) - set(ZOO_KERNELS)),
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")
     log(f"[seconds] {json.dumps(seconds)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
@@ -1370,7 +1698,8 @@ def main(argv=None):
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "more_kernel_rows": more_rows,
-             "serve": serve_sum, "train": train_sum, "seconds": seconds},
+             "serve": serve_sum, "train": train_sum, "zoo": zoo_sum,
+             "seconds": seconds},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

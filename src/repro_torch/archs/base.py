@@ -1,0 +1,172 @@
+"""Model zoo base: ModelConfig, shared assembly helpers, the Model bundle
+(counterpart of `repro/archs/base.py`).
+
+Every architecture exposes a `Model`:
+    init(gen, device=None)       -> params (nested dict of tensors)
+    forward(params, batch)       -> logits (B, S, V)   [prefill math]
+    init_decode_state(batch_size, cache_len, device=None) -> state
+    decode_step(params, state, tokens, pos) -> (logits, state)
+    loss_fn                      -> raises: zoo training is a later slice
+
+Entry points run on CUDA unless given device="cpu". Serving callers run
+them under `torch.no_grad()`; with grad mode on, every kernel call saves
+its inputs for the backward through its plain version."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.nn import layers
+from repro_torch.nn.module import ParamBuilder, unstack
+
+
+# The fields the ported archs read; those that only unported archs read
+# (MoE, Mamba2, whisper, remat, ...) join with the slice that ports them.
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    # attention options
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    window: int | None = None           # sliding-window size for local layers
+    global_every: int = 0               # every Nth layer is global (gemma 5:1 -> 6)
+    logit_softcap: float | None = None
+    attn_softcap: float | None = None
+    # blockwise online-softmax attention (the flash_attn kernel) for long
+    # sequences (None = dense). Engaged when S >= 2*attn_chunk and
+    # S % attn_chunk == 0; the kernel's tiles do not depend on it.
+    attn_chunk: int | None = 2048
+    # xLSTM
+    slstm_every: int = 0                # every Nth layer is sLSTM
+    # vlm (not ported: a dense config that sets these raises)
+    num_patches: int = 0
+    mrope_sections: tuple[int, ...] | None = None
+    # runtime
+    act: str = "silu"
+    tie_embeddings: bool = True
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    scan_layers: bool = True
+    # the port's kernel route (ops.dispatch's mode): "auto" (the kernels on
+    # CUDA tensors, the plain versions on CPU tensors) or "oracle" (the
+    # plain versions everywhere, for comparison)
+    kernels_mode: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def reduced(self, **kw) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model<=256."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = min(self.n_kv_heads, n_heads)
+        upd = dict(
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            d_head=d_model // n_heads,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab=min(self.vocab, 1024),
+            global_every=2 if self.global_every else 0,
+            window=min(self.window, 64) if self.window else None,
+            slstm_every=2 if self.slstm_every else 0,
+            dtype=torch.float32,
+            scan_layers=False,
+        )
+        upd.update(kw)
+        return dataclasses.replace(self, **upd)
+
+
+def _no_loss(params, batch):
+    raise NotImplementedError(
+        "zoo training (cross_entropy / loss_fn) is not ported yet; it waits "
+        "for the zoo training slice (ROADMAP Queue 1 item 19)")
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    forward: Callable
+    loss_fn: Callable = _no_loss
+    init_decode_state: Callable | None = None
+    decode_step: Callable | None = None
+    encode: Callable | None = None        # enc-dec only (whisper: not ported)
+
+
+# ---------------------------------------------------------------------------
+# shared helpers
+# ---------------------------------------------------------------------------
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab rounded up to 256, as the JAX package pads it."""
+    return -(-cfg.vocab // 256) * 256
+
+
+def builder(cfg: ModelConfig, gen: torch.Generator | None, device):
+    """A ParamBuilder drawing from `gen` (seed 0 on the resolved device
+    when None), which must live on the resolved device."""
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(dev).manual_seed(0)
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator is on {gen.device}, the parameters "
+                         f"go to {dev}")
+    return ParamBuilder(gen, cfg.param_dtype)
+
+
+def make_embedding(b: ParamBuilder, cfg: ModelConfig):
+    layers.embedding_init(b, "embed", padded_vocab(cfg), cfg.d_model)
+    layers.rmsnorm_init(b, "final_norm", cfg.d_model)
+    if not cfg.tie_embeddings:
+        layers.linear_init(b, "lm_head", cfg.d_model, padded_vocab(cfg))
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    x = layers.embed(params["embed"], tokens, dtype=cfg.dtype)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+                            device=x.device)
+
+
+def lm_logits(params, cfg: ModelConfig, x):
+    x = layers.rmsnorm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x)
+    else:
+        logits = layers.linear(params["lm_head"], x, dtype=torch.float32)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    if padded_vocab(cfg) != cfg.vocab:
+        logits = logits[..., : cfg.vocab]
+    return logits
+
+
+def run_blocks(block_fn, params_list, x):
+    """block_fn(params_i, x) -> x over per-unit parameter trees (`remat`
+    is a training option: nothing to recompute when serving)."""
+    for p in params_list:
+        x = block_fn(p, x)
+    return x
+
+
+def units(params_blocks, cfg: ModelConfig, n_units: int):
+    """Per-unit parameter trees: the `u{i}` subtrees, or views of unit i
+    of the stacked tree (`scan_layers=True`, JAX's `scan_blocks` layout)."""
+    if cfg.scan_layers:
+        return [unstack(params_blocks, i) for i in range(n_units)]
+    return [params_blocks[f"u{i}"] for i in range(n_units)]

@@ -6,8 +6,10 @@ parameters `time/{w,b}`, `msg/{w1,b1,w2,b2}`, `mem/{w,u,b}`,
 `pres/gamma_logit` (weights (in, out), used as `x @ W`, never transposed);
 state `memory/{mem,last_update}`, `neighbors/{nbr,t,ptr}`,
 `pres/{n,xi,psi}` and, for APAN, `mailbox/{msg,t,ptr}`; the pipelined
-schedule's snapshot `{read_mem, read_last_update, pending, tick}`.
-Converting from JAX arrays to numpy is the caller's business; nothing here
+schedule's snapshot `{read_mem, read_last_update, pending, tick}`; and
+the model zoo's parameter trees (`embed/table`, `final_norm/scale`,
+`blocks/u{i}/b{j}/...` or, stacked, `blocks/b{j}/...` with a leading
+unit dim). Converting from JAX arrays to numpy is the caller's business; nothing here
 sees a JAX array."""
 from __future__ import annotations
 
@@ -97,3 +99,14 @@ def pipeline_state_to_numpy(pstate) -> dict:
     return {"read_mem": _np(pstate.read_mem),
             "read_last_update": _np(pstate.read_last_update),
             "pending": _np(pstate.pending[:-1]), "tick": pstate.tick}
+
+
+# a model zoo parameter tree (unstacked `blocks/u{i}/...` or stacked
+# `blocks/...` alike) is float32 (`param_dtype`), as the MDGNN's is
+zoo_params_from_numpy = params_from_numpy
+
+
+def zoo_params_to_numpy(params) -> dict:
+    """The zoo parameter tree as numpy arrays, in its own layout."""
+    return {k: zoo_params_to_numpy(v) if isinstance(v, dict) else _np(v)
+            for k, v in params.items()}

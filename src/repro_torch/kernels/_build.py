@@ -47,6 +47,9 @@ SIGNATURES = {
     "repro_pres_filter": [_P, _P, _P, _P, _P, _I64, _I, _F, _I, _P, _P, _P],
     "repro_memory_update": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _I,
                             _I, _P, _P, _P, _P],
+    "repro_flash_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                         _P],
+    "repro_ssd_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

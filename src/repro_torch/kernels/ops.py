@@ -17,11 +17,12 @@ its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
 them.
 
 `dispatch` is the raw route. The named wrappers below it are what the
-model calls: `gru_cell`, `memory_update_table`, `embed_attn`,
-`pres_predict`, `neighbor_attn`, `pres_filter` and `memory_update` go
-through `autodiff` (the routed forward, a backward through the plain
-version), so training differentiates through the kernels; `link_score`
-(serving's top-k only) is the raw route."""
+models call: `gru_cell`, `memory_update_table`, `embed_attn`,
+`pres_predict`, `neighbor_attn`, `pres_filter`, `memory_update` and the
+zoo's `flash_attn` and `ssd_chunk` go through `autodiff` (the routed
+forward, a backward through the plain version), so training
+differentiates through the kernels; `link_score` (serving's top-k only)
+is the raw route."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.kernels import autodiff
 from repro_torch.kernels import embed_attn as _ea
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import gru_cell as _gru
 from repro_torch.kernels import link_score as _ls
 from repro_torch.kernels import memory_update as _mu
@@ -41,6 +43,7 @@ from repro_torch.kernels import neighbor_attn as _na
 from repro_torch.kernels import pres_filter as _pf
 from repro_torch.kernels import pres_predict as _pp
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as _ssd
 
 MODES = ("auto", "compiled", "interpret", "oracle")
 
@@ -82,6 +85,12 @@ REGISTRY: dict[str, KernelSpec] = {
     "memory_update": KernelSpec(
         "memory_update", _mud.memory_update_cuda, ref.memory_update_ref,
         _mud, "src/repro/kernels/memory_update.py:69"),
+    "flash_attn": KernelSpec(
+        "flash_attn", _fa.flash_attn_cuda, ref.flash_attn_ref, _fa,
+        "src/repro/kernels/flash_attn.py:73"),
+    "ssd_chunk": KernelSpec(
+        "ssd_chunk", _ssd.ssd_chunk_cuda, ref.ssd_chunk_ref, _ssd,
+        "src/repro/kernels/ssd_chunk.py:49"),
 }
 
 
@@ -144,6 +153,9 @@ def reset_launch_counts() -> None:
 #       Eq. 7 scale, from state) takes no gradient
 #   memory_update(x, h, w, u, b, delta_mean, scale, gamma, *, mode, clip,
 #       delta_mode) -> (s_meas, fused, delta), each (M, D)
+#   flash_attn(q, k, v, *, mode, causal=True, window=None) -> (G, S, D) in
+#       q's dtype; q (G, S, D), k and v (Gkv, T, D), G % Gkv == 0
+#   ssd_chunk(q, k, v, lcum, h0, *, mode) -> (y (G, L, P), h1 (G, N, P))
 gru_cell = autodiff.oracle_vjp(functools.partial(dispatch, "gru_cell"),
                                ref.gru_cell_ref)
 memory_update_table = autodiff.table_vjp(
@@ -161,6 +173,10 @@ pres_filter = autodiff.oracle_vjp(
     nondiff=(3,))
 memory_update = autodiff.oracle_vjp(
     functools.partial(dispatch, "memory_update"), ref.memory_update_ref)
+flash_attn = autodiff.oracle_vjp(
+    functools.partial(dispatch, "flash_attn"), ref.flash_attn_ref)
+ssd_chunk = autodiff.oracle_vjp(
+    functools.partial(dispatch, "ssd_chunk"), ref.ssd_chunk_ref)
 
 
 def neighbor_attn(q, k, v, valid, **kw):

@@ -128,3 +128,58 @@ def embed_attn_ref(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv,
     if n_heads > 1:
         agg = agg.reshape(r, e)
     return agg
+
+
+NEG_INF = -1e30
+
+
+def flash_attn_ref(q, k, v, causal=True, window=None):
+    """Dense attention. q: (G, S, D); k, v: (Gkv, T, D) with G % Gkv == 0,
+    query group g reading kv group g // (G / Gkv). Scores in float32,
+    scaled by 1/sqrt(D) after the product, masked (k_pos <= q_pos when
+    causal, k_pos > q_pos - window when windowed) to -1e30; output in
+    q's dtype."""
+    d = q.shape[-1]
+    s, t = q.shape[1], k.shape[1]
+    n_rep = q.shape[0] // k.shape[0]
+    if n_rep > 1:
+        k = torch.repeat_interleave(k, n_rep, dim=0)
+        v = torch.repeat_interleave(v, n_rep, dim=0)
+    scores = torch.einsum("gsd,gtd->gst", q.float(), k.float()) / (d ** 0.5)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    valid = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    scores = torch.where(valid[None], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("gst,gtd->gsd", probs, v.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(q, k, v, lcum, h0):
+    """One SSD / mLSTM chunk for each of G groups, in float32.
+    q, k: (G, L, N); v: (G, L, P); lcum: (G, L) inclusive cumulative
+    log-decay; h0: (G, N, P) carried state. Returns (y (G, L, P),
+    h1 (G, N, P)):
+        y  = ((q k^T) * exp(lcum_i - lcum_j) [j <= i]) v + (q * exp(lcum)) h0
+        h1 = exp(ltot) h0 + (k * exp(ltot - lcum))^T v
+    The decay above the diagonal is zeroed before the exp as well as
+    after it, so a large gap cannot overflow into the gradient (the
+    forward is the JAX oracle's)."""
+    ltot = lcum[:, -1]
+    scores = q @ k.transpose(1, 2)                       # (G, L, L)
+    decay = lcum[:, :, None] - lcum[:, None, :]
+    ll = q.shape[1]
+    mask = torch.tril(torch.ones((ll, ll), dtype=torch.bool,
+                                 device=q.device))
+    zero = torch.zeros((), dtype=scores.dtype, device=q.device)
+    sdk = torch.where(mask, scores * torch.exp(torch.where(mask, decay, zero)),
+                      zero)
+    y = sdk @ v + (q * torch.exp(lcum)[:, :, None]) @ h0
+    w = torch.exp(ltot[:, None] - lcum)
+    h1 = h0 * torch.exp(ltot)[:, None, None] + (k * w[:, :, None]).transpose(
+        1, 2) @ v
+    return y, h1

@@ -8,7 +8,13 @@ reporting p50/p99 ingest and query latency, events/sec and the online AP:
         --model tgn --pres --use-kernels
 
 `--model apan` serves APAN (mailbox attention through `neighbor_attn`);
-`--model jodie` is not ported and raises.
+`--model jodie` is not ported and raises. `--zoo <arch> --steps N` runs
+the model zoo's greedy decode loop instead (a ported arch's reduced
+config, batch 2, a 128-slot cache), as the JAX CLI does; decode runs no
+kernel (the zoo's kernels run in the prefill, `Model.forward`):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --zoo qwen3-0.6b \
+        --steps 16
 
 It keeps the JAX CLI's flags. Flags this port cannot honour yet raise
 NotImplementedError naming the ROADMAP item that ports them, and so does
@@ -17,6 +23,7 @@ It runs on CUDA unless `--device cpu` is given."""
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -31,7 +38,6 @@ from repro_torch.serve import MicroBatcher, ServeEngine, replay
 _NOT_YET = {
     "checkpoint": "Queue 1 item 10 (checkpoint/io.py)",
     "event_store": "Queue 1 item 17 (event store)",
-    "zoo": "Queue 1 item 19 (zoo substrate)",
     "trace_dir": "Queue 1 item 14 (obs/trace.py)",
     "metrics_out": "Queue 1 item 14 (obs/sink.py)",
 }
@@ -91,6 +97,43 @@ def serve_mdgnn(args):
     return report
 
 
+def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
+    """Greedy decode of `steps` tokens for a batch of 2 through a ported
+    arch's reduced config, with random parameters from `seed`; prints
+    tokens/s and the device. Returns the (2, steps) generated tokens."""
+    from repro_torch.archs.api import get_model
+    from repro_torch.configs import get_config
+
+    dev = resolve_device(device)
+    cfg = get_config(arch).reduced()
+    model = get_model(cfg)
+    if model.encode is not None:
+        raise NotImplementedError(
+            f"{arch}: the encoder prefill is not ported yet (ROADMAP Queue 1 "
+            f"item 19: whisper)")
+    params = model.init(torch.Generator(dev).manual_seed(seed), dev)
+    b, cache_len = 2, 128
+    tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    out = []
+    with torch.no_grad():
+        state = model.init_decode_state(b, cache_len, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for pos in range(steps):
+            logits, state = model.decode_step(params, state, tokens, pos)
+            tokens = torch.argmax(logits[:, -1:], dim=-1)
+            out.append(tokens)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "CPU")
+    print(f"[serve-zoo] {arch} (reduced): {steps} decode steps, "
+          f"{steps * b / dt:.1f} tok/s on {name}")
+    return torch.cat(out, dim=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="wiki-small", choices=list(SPECS))
@@ -136,11 +179,17 @@ def main(argv=None):
     ap.add_argument("--trace-steps", type=int, default=8,
                     help="tick window length for --trace-dir")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--zoo", default=None, help="not ported yet (raises)")
-    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--zoo", default=None,
+                    help="run the model zoo's decode loop for this arch "
+                         "(qwen3-0.6b or xlstm-350m; the others raise)")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="decode steps of --zoo")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
-    return serve_mdgnn(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.zoo:
+        return serve_zoo(args.zoo, args.steps, args.device, args.seed)
+    return serve_mdgnn(args)
 
 
 if __name__ == "__main__":

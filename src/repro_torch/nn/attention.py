@@ -1,0 +1,247 @@
+"""GQA attention with RoPE, qk-norm, QKV bias, sliding windows and KV-cache
+single-token decode (counterpart of `repro/nn/attention.py`).
+
+Projection weights are 2-D with a fused (n_heads * d_head) output dim, as
+in JAX; activations are reshaped to (B, S, H, D) inside. The long-prefill
+branch, `blockwise_attention`, runs the `flash_attn` kernel
+(`kernels/flash_attn.py`); the JAX package's lax version of it is the
+function whose on-chip form that kernel is. M-RoPE (VLM) and cross
+attention (whisper) wait for their archs (ROADMAP Queue 1 item 19)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.nn.layers import rmsnorm, rmsnorm_init
+from repro_torch.nn.module import ParamBuilder
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    angles = positions[..., None].float() * freqs          # (B, S, d/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention parameterisation
+# ---------------------------------------------------------------------------
+
+
+def attention_init(b: ParamBuilder, name: str, d_model: int, n_heads: int,
+                   n_kv_heads: int, d_head: int, qkv_bias: bool = False,
+                   qk_norm: bool = False, out_bias: bool = False):
+    sub = b.sub(name)
+    sub.add("wq", (d_model, n_heads * d_head))
+    sub.add("wk", (d_model, n_kv_heads * d_head))
+    sub.add("wv", (d_model, n_kv_heads * d_head))
+    sub.add("wo", (n_heads * d_head, d_model))
+    if qkv_bias:
+        sub.add("bq", (n_heads * d_head,), init="zeros")
+        sub.add("bk", (n_kv_heads * d_head,), init="zeros")
+        sub.add("bv", (n_kv_heads * d_head,), init="zeros")
+    if out_bias:
+        sub.add("bo", (d_model,), init="zeros")
+    if qk_norm:
+        rmsnorm_init(sub, "q_norm", d_head)
+        rmsnorm_init(sub, "k_norm", d_head)
+
+
+def _project_qkv(params, xq, xkv, d_head: int):
+    dt = xq.dtype
+    b_, s, _ = xq.shape
+    t = xkv.shape[1]
+    q = xq @ params["wq"].to(dt)
+    k = xkv @ params["wk"].to(dt)
+    v = xkv @ params["wv"].to(dt)
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(b_, s, -1, d_head)
+    k = k.reshape(b_, t, -1, d_head)
+    v = v.reshape(b_, t, -1, d_head)
+    if "q_norm" in params:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    return q, k, v
+
+
+def _out_proj(params, out, dtype):
+    b_, s = out.shape[:2]
+    y = out.reshape(b_, s, -1) @ params["wo"].to(dtype)
+    if "bo" in params:
+        y = y + params["bo"].to(dtype)
+    return y
+
+
+def _gqa_scores(q, k):
+    """q: (B, S, H, D), k: (B, T, KV, D) -> scores (B, KV, G, S, T) in
+    float32."""
+    b_, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b_, s, kv, h // kv, d)
+    return torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                        k.float()) / math.sqrt(d)
+
+
+def _gqa_out(probs, v, dtype):
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    b_, s, kv, g, d = out.shape
+    return out.reshape(b_, s, kv * g, d).to(dtype)
+
+
+def causal_mask(s: int, t: int, offset: int = 0, window: int | None = None,
+                device=None):
+    qpos = offset + torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (online-softmax) attention through the flash_attn kernel
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
+                        softmax_scale_cap: float | None,
+                        mode: str | None = None):
+    """q: (B, S, H, D), k/v: (B, T, KV, D) -> (B, S, H, D) in q.dtype.
+
+    The query heads are laid out as (B * H, S, D) and the kv heads as
+    (B * KV, T, D), so query head h of batch b reads kv head h // (H / KV)
+    of the same b, and the `flash_attn` kernel runs them (the plain
+    version for CPU tensors, or with mode="oracle"). The kernel's tiles
+    are its own: JAX's `q_chunk` / `kv_chunk` have no counterpart here
+    (the caller's chunk only decides whether this branch is taken)."""
+    if softmax_scale_cap is not None:
+        raise NotImplementedError(
+            "soft-capped attention scores are not ported to the flash_attn "
+            "kernel yet (ROADMAP Queue 1 item 19: the softcap branch)")
+    b_, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qf = q.transpose(1, 2).reshape(b_ * h, s, d).contiguous()
+    kf = k.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
+    vf = v.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
+    out = ops.flash_attn(qf, kf, vf, mode=mode, causal=causal, window=window)
+    return out.reshape(b_, h, s, d).transpose(1, 2).to(q.dtype)
+
+
+def attention(params, x, positions, *, d_head: int, causal: bool = True,
+              window: int | None = None, rope_theta: float | None = 10000.0,
+              mrope_sections=None, mrope_positions=None,
+              softmax_scale_cap: float | None = None, attn_mask=None,
+              chunk: int | None = None, mode: str | None = None):
+    """Full-sequence (prefill) attention. x: (B, S, d).
+
+    chunk: when set, S >= 2 * chunk, S % chunk == 0 and no attn_mask is
+    given, the blockwise branch (the `flash_attn` kernel, routed by
+    `mode`); otherwise dense scores in float32, as in JAX."""
+    if mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP Queue 1 item 19: VLM, "
+            "apply_mrope)")
+    q, k, v = _project_qkv(params, x, x, d_head)
+    if positions is not None and rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    s = x.shape[1]
+    if (chunk is not None and attn_mask is None and s >= 2 * chunk
+            and s % chunk == 0):
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                  softmax_scale_cap=softmax_scale_cap,
+                                  mode=mode)
+        return _out_proj(params, out, x.dtype)
+    scores = _gqa_scores(q, k)
+    if softmax_scale_cap is not None:  # logit soft-capping (gemma-style)
+        scores = torch.tanh(scores / softmax_scale_cap) * softmax_scale_cap
+    neg = torch.full((), NEG_INF, device=x.device)
+    if causal:
+        mask = causal_mask(s, s, window=window, device=x.device)
+        scores = torch.where(mask[None, None, None], scores, neg)
+    if attn_mask is not None:
+        scores = torch.where(attn_mask[:, None, None], scores, neg)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v, x.dtype)
+    return _out_proj(params, out, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache — decode path
+# ---------------------------------------------------------------------------
+
+
+def init_cache(batch: int, cache_len: int, n_kv: int, d_head: int,
+               dtype=torch.bfloat16, device=None):
+    shape = (batch, cache_len, n_kv, d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params, x, cache, pos: int, *, d_head: int,
+                     window: int | None = None,
+                     rope_theta: float | None = 10000.0,
+                     mrope_sections=None, mrope_positions=None,
+                     softmax_scale_cap: float | None = None):
+    """One-token decode. x: (B, 1, d); pos: the token's position (int).
+
+    For windowed layers the cache is a ring buffer (write slot pos %
+    cache_len). The new k and v are written into `cache` IN PLACE (the
+    JAX version returns updated copies; an 8,192-slot cache would be
+    copied every step); returns (y, cache)."""
+    b_, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"decode_attention takes one token, got S={s}")
+    if mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP Queue 1 item 19: VLM, "
+            "apply_mrope)")
+    pos = int(pos)
+    q, k, v = _project_qkv(params, x, x, d_head)
+    if rope_theta is not None:
+        posv = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, rope_theta)
+        k = apply_rope(k, posv, rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    cache_len = ck.shape[1]
+    slot = pos % cache_len if window is not None else pos
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    scores = _gqa_scores(q, ck)                       # (B, KV, G, 1, T)
+    if softmax_scale_cap is not None:
+        scores = torch.tanh(scores / softmax_scale_cap) * softmax_scale_cap
+    kpos = torch.arange(cache_len, device=x.device)
+    if window is not None:
+        # ring buffer: slot j holds absolute position pos - ((slot - j) mod L)
+        abs_pos = pos - torch.remainder(slot - kpos, cache_len)
+        valid = (abs_pos >= max(0, pos - window + 1)) & (abs_pos <= pos)
+    else:
+        valid = kpos <= pos
+    scores = torch.where(valid[None, None, None, None, :], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, cv, x.dtype)
+    return _out_proj(params, out, x.dtype), cache

@@ -1,7 +1,7 @@
 """The port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports JAX or the JAX package, the serving and training
-modules import with JAX blocked, and an entry point given no device on a
-machine without CUDA raises instead of running on the CPU."""
+`chip_smoke.py` imports JAX or the JAX package, the serving, training and
+model zoo modules import with JAX blocked, and an entry point given no
+device on a machine without CUDA raises instead of running on the CPU."""
 from __future__ import annotations
 
 import ast
@@ -49,6 +49,8 @@ def test_serving_imports_with_jax_blocked():
             "import repro_torch.optim, repro_torch.graph.negatives\n"
             "import repro_torch.core.coherence, repro_torch.bridge\n"
             "import repro_torch.train.pipeline, repro_torch.models.embeddings\n"
+            "import repro_torch.archs.api, repro_torch.nn.attention\n"
+            "import repro_torch.nn.xlstm, repro_torch.configs\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -220,7 +220,7 @@ def test_launch_serve_cli_on_cpu(model, capsys):
 def test_launch_serve_cli_refuses_unported_flags():
     from repro_torch.launch import serve as tserve
     for flags in (["--checkpoint", "x"], ["--event-store", "x"],
-                  ["--zoo", "qwen3_0_6b"], ["--trace-dir", "x"],
+                  ["--zoo", "whisper-tiny"], ["--trace-dir", "x"],
                   ["--metrics-out", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(["--pres", "--use-kernels", "--device", "cpu",
