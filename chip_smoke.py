@@ -7,13 +7,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit from nvidia-smi; exits 2 when
    CUDA is unavailable or the port's sources are not beside this script.
-2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc.
+2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc;
+   ptxas's registers, spills and shared memory for each instantiation of
+   the bf16 flash_attn kernel, whose SASS must hold wgmma (HGMMA) and TMA
+   loads (UTMALDG).
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
    large time gaps, D % 4 != 0, a misaligned start, K = 1, the K and E
    limits, Din != D, clip bounds hit exactly, both PRES delta modes; for
-   flash_attn S = 1, ragged S, T != S, windows, n_rep 1/2/4, D up to 256,
-   fp32 and bf16 (held within one bf16 ulp of the fp32 plain version);
+   flash_attn S = 1, ragged S, T != S, windows, n_rep 1/2/3/4, D 16 to
+   256 (80, 96: not multiples of 64; 20: not of 8), S = 8,192, fp32 (the
+   FMA kernel) and bf16 (the wgmma kernel, held within one bf16 ulp of
+   the fp32 plain version);
    for ssd_chunk L = 1, ragged L, N = 256 with P = 257, a large negative
    lcum).
 4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
@@ -53,9 +58,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 9. zoo-qwen3 / zoo-xlstm: the model zoo's prefill at full width (qwen3-0.6b
    at B=2, S=8192; xlstm-350m at B=2, S=2048; random weights and tokens
    from --seed) in float32 through the kernels, counted (flash_attn once a
-   layer, 28; ssd_chunk once a chunk and mLSTM layer, 168), against the
-   plain route; then timed in the published bfloat16 (tokens/s, peak
-   memory) and 16 greedy decode steps against an S-slot cache (ms a step;
+   layer, 28, all on its fp32 route; ssd_chunk once a chunk and mLSTM
+   layer, 168), against the plain route; then timed in the published
+   bfloat16 (tokens/s, peak memory; flash_attn's launches all on its bf16
+   wgmma route) and 16 greedy decode steps against an S-slot cache (ms a step;
    decode launches no kernel). cli-zoo: `python -m repro_torch.launch.serve
    --zoo` for both archs.
 10. kernels: each kernel and its plain version timed (CUDA events, median)
@@ -66,7 +72,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    state; flash_attn and ssd_chunk in the zoo's bf16 prefill), compared
    there, set beside the card's bound for that work and,
    where one PyTorch call computes the same function, beside that call's
-   time (memory_update also beside gru_cell then pres_filter).
+   time (memory_update also beside gru_cell then pres_filter; flash_attn
+   with the route that ran, its products' TFLOP/s and its share of the
+   bound).
 
 Every serve, train and zoo phase names the kernels its path must launch;
 any other kernel launched fails it. The launch counters are zeroed just
@@ -117,8 +125,12 @@ SOURCES = {"memory_update_table": CSRC + "memory_update.cu",
            "neighbor_attn": CSRC + "neighbor_attn.cu",
            "pres_filter": CSRC + "pres_filter.cu",
            "memory_update": CSRC + "memory_update.cu",
-           "flash_attn": CSRC + "flash_attn.cu",
+           "flash_attn": CSRC + "flash_attn_wgmma.cu",
            "ssd_chunk": CSRC + "ssd_chunk.cu"}
+# flash_attn's two kernels by route: fp32 inputs on the FMA units, bf16
+# inputs on the tensor cores (wgmma fed by TMA)
+FLASH_SOURCES = {"fma": CSRC + "flash_attn.cu",
+                 "wgmma": CSRC + "flash_attn_wgmma.cu"}
 # the model zoo's kernels (prefill only) and the full-width prefill each
 # zoo phase drives: batch, sequence, and the launches of its kernel (one
 # per layer for qwen3's 28 attention layers, one per chunk for xlstm's 21
@@ -215,8 +227,9 @@ def work(name, args, kw=None):
         # q k and p v (2 FLOPs a multiply-add, D each) and the softmax's
         # scale, max, exp and sum on each valid pair. With bf16 inputs the
         # products may run on bf16 tensor cores (q k exactly, with fp32
-        # accumulation; p v as a bf16 flash kernel does), the softmax on
-        # the fp32 units beside them
+        # accumulation; p v as a bf16 flash kernel does: the wgmma kernel's
+        # second product for p's low part is its own cost, not the
+        # algorithm's), the softmax on the fp32 units beside them
         import torch
         q, k, _ = args
         g, s, d = q.shape
@@ -380,20 +393,6 @@ def run_pair(name, args, kw):
     return got, want
 
 
-def bf16_excess(got, want32, tol):
-    """The largest |got - want32| beyond one bf16 ulp of want32 plus the
-    fp32 tolerance tol * max(1, max|want32|) (the reference rounds a value
-    that is itself within the fp32 tolerance), and the largest
-    |got - want32|: a bf16 output agrees when the first is <= 0."""
-    import torch
-    got, want32 = got.float(), want32.float()
-    mag = want32.abs().clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    diff = (got - want32).abs()
-    slack = tol * max(1.0, float(want32.abs().max()))
-    return float((diff - ulp - slack).max()), float(diff.max())
-
-
 def check_kernel(name, args, kw, label):
     """Each output of the kernel against the plain version's, at its own
     scale; returns the largest |kernel - plain| over all outputs. A bf16
@@ -401,6 +400,7 @@ def check_kernel(name, args, kw, label):
     plain version computed in fp32 from the same (bf16) inputs."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import bf16_excess
     got, want = run_pair(name, args, kw)
     torch.cuda.synchronize()
     if got[0].dtype == torch.bfloat16:
@@ -426,6 +426,26 @@ def check_kernel(name, args, kw, label):
                 f"plain| = {err:.3g} > {lim:.3g}")
         worst = max(worst, err)
     return worst
+
+
+def check_wgmma_build(out_dir):
+    """Print ptxas's registers, shared memory, spills and any wgmma it
+    serialized for each instantiation of the wgmma flash_attn (none
+    should be), and require its SASS to hold
+    tensor-core products (HGMMA: wgmma) and TMA loads (UTMALDG)."""
+    from repro_torch.kernels import _build
+    for line in (out_dir / "flash_attn_wgmma.log").read_text().splitlines():
+        if any(w in line for w in ("Compiling entry", "registers",
+                                   "spill", "Performance Loss")):
+            log(f"[build] ptxas {line.strip()}")
+    tool = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(out_dir /
+                                              "flash_attn_wgmma.o")],
+                          capture_output=True, text=True, timeout=120).stdout
+    ops_ = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[build] flash_attn_wgmma SASS: {json.dumps(ops_)}")
+    require(all(ops_.values()), f"flash_attn_wgmma.o lacks wgmma or TMA "
+            f"instructions: {ops_}")
 
 
 # ---------------------------------------------------------------------------
@@ -539,15 +559,20 @@ def edge_cases(dev):
                           f"M={m} D={d} Din={din} {mode}"))
     # flash_attn: S = 1, ragged S and T (not multiples of the 64-row
     # tiles), T != S both ways, windows (a window that leaves late rows
-    # with no valid key when T < S: the mean of v), n_rep 1 / 2 / 4, D 40,
-    # 64, 128 and 256, non-causal, fp32 and bf16
+    # with no valid key when T < S: the mean of v), n_rep 1 / 2 / 3 / 4,
+    # D 16 to 256 (80 and 96: multiples of 16, not of the wgmma route's
+    # 64-column panels; 20: not a multiple of 8, padded for TMA), S = 8,192
+    # causal, non-causal, fp32 (the FMA route) and bf16 (the wgmma route)
     for g, gkv, s_, t_, d, causal, window in [
             (1, 1, 1, 1, 64, True, None), (4, 2, 1, 37, 128, False, None),
             (2, 2, 100, 100, 64, True, None), (8, 2, 130, 130, 128, True, 50),
             (4, 1, 64, 200, 64, True, None), (4, 4, 200, 64, 40, True, None),
             (2, 1, 200, 50, 64, True, 10), (6, 3, 257, 257, 256, False, 70),
             (32, 16, 300, 300, 128, True, None),
-            (3, 3, 129, 65, 16, False, None)]:
+            (3, 3, 129, 65, 16, False, None),
+            (4, 2, 190, 190, 96, True, None), (2, 2, 100, 77, 80, False, 30),
+            (6, 2, 150, 150, 128, True, None), (3, 1, 70, 70, 20, True, None),
+            (4, 2, 8192, 8192, 128, True, None)]:
         for dt in (torch.float32, torch.bfloat16):
             args = [t(f(g, s_, d, sc=0.5)).to(dt),
                     t(f(gkv, t_, d, sc=0.5)).to(dt),
@@ -1188,6 +1213,17 @@ def op_phase(label, name, inputs):
 # ---------------------------------------------------------------------------
 
 
+def check_routes(label, what, expect, kernel):
+    """flash_attn's launches by route (fma: fp32 inputs, wgmma: bf16)."""
+    if kernel != "flash_attn":
+        return
+    from repro_torch.kernels import flash_attn as fa
+    log(f"[{label}] {what} flash_attn launches by route "
+        f"{json.dumps(fa.launches_by_route)}")
+    require(fa.launches_by_route == expect, f"{label}: {what} flash_attn "
+            f"routes {fa.launches_by_route}, expected {expect}")
+
+
 def _last_logits(model, params, tokens):
     """forward(...)[:, -1] in float32 (a copy: the (B, S, V) logits go)."""
     return model.forward(params, {"tokens": tokens})[:, -1].float().clone()
@@ -1232,6 +1268,8 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
         require(counts[kernel] == per_prefill, f"{label}: {kernel} launched "
                 f"{counts[kernel]} times in one prefill, expected "
                 f"{per_prefill}")
+        check_routes(label, "fp32", {"fma": per_prefill, "wgmma": 0},
+                     kernel)
         want = _last_logits(get_model(dataclasses.replace(
             cfg32, kernels_mode="oracle")), params, tokens)
         require(tuple(got.shape) == (b, cfg.vocab)
@@ -1267,6 +1305,8 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
         require(counts_bf[kernel] == 3 * per_prefill,
                 f"{label}: bf16 prefills launched {kernel} "
                 f"{counts_bf[kernel]} times")
+        check_routes(label, "bf16 (3 prefills)",
+                     {"fma": 0, "wgmma": 3 * per_prefill}, kernel)
         require(bool(torch.isfinite(last).all()),
                 f"{label}: bf16 prefill logits not finite")
         med = float(np.median(secs))
@@ -1409,7 +1449,8 @@ def kernel_row(name, spec, phase, inputs, counts):
         if out.dtype == torch.bfloat16:
             # SDPA rounds its probabilities to bf16 before the product
             # with v: held to 2^-6 of the output's scale (a few bf16 ulps;
-            # the kernel, which keeps them in fp32, to one ulp)
+            # the kernel, which splits them into two bf16 parts, to one
+            # ulp)
             want32 = ops.dispatch(name, *[x.float() for x in lib_args],
                                   mode="oracle", **kw)
             lib_err = float((out.float() - want32).abs().max())
@@ -1426,6 +1467,16 @@ def kernel_row(name, spec, phase, inputs, counts):
            "max_abs_err": err, "tol": TOL[name], "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms, "shape": shape_of(name, a)}
+    if name == "flash_attn":
+        # which of its two kernels ran, the products' rate and the share of
+        # the bound (at the bf16 tensor-core peak for bf16 inputs)
+        from repro_torch.kernels import flash_attn as fa
+        route = fa.ROUTES[a[0].dtype]
+        g, s_, d = a[0].shape
+        prod = 4 * d * g * attn_pairs(s_, a[1].shape[1],
+                                      kw.get("causal", True), kw.get("window"))
+        row.update(source=FLASH_SOURCES[route], kernel_route=route,
+                   tflops=prod / (ms * 1e-3) / 1e12, bound_share=b_ms / ms)
     if name == "memory_update":
         # the fusion's yardstick: the gru_cell and pres_filter kernels in
         # turn on the same inputs
@@ -1494,6 +1545,7 @@ def main(argv=None):
     _build.library()
     log(f"[build] {len(_build.sources())} sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f}s")
+    check_wgmma_build(_build.build().parent)
 
     seconds = {}
 

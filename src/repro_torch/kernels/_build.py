@@ -3,7 +3,10 @@ device code they share in `csrc/*.cuh`).
 
 Each source is compiled by `nvcc` for `sm_90a` into an object file, all
 sources in parallel, and the objects are linked into one shared library
-with a plain C interface, loaded with `ctypes`. The library lives in
+with a plain C interface, loaded with `ctypes`. The link needs no
+`-lcuda`: the one driver-API function the kernels use
+(`cuTensorMapEncodeTiled`, for `flash_attn_wgmma.cu`'s TMA descriptors) is
+fetched at run time with `cudaGetDriverEntryPoint`. The library lives in
 `build/repro_torch/<hash of the sources and flags>/` at the repository
 root, so an edited source or header rebuilds and an unchanged tree loads
 at once.
@@ -47,8 +50,9 @@ SIGNATURES = {
     "repro_pres_filter": [_P, _P, _P, _P, _P, _I64, _I, _F, _I, _P, _P, _P],
     "repro_memory_update": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _I,
                             _I, _P, _P, _P, _P],
-    "repro_flash_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-                         _P],
+    "repro_flash_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "repro_flash_attn_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                               _P],
     "repro_ssd_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 

@@ -1,17 +1,18 @@
-// flash_attn for Hopper (sm_90a), plain C interface for ctypes.
+// flash_attn on float32 inputs for Hopper (sm_90a), plain C interface for
+// ctypes. bfloat16 inputs take csrc/flash_attn_wgmma.cu (tensor cores).
 //
 // Replaces: src/repro/kernels/flash_attn.py::_flash_attn_pallas (body
-// _flash_kernel): attention of G query groups over Gkv kv groups, group g
-// reading kv group g / (G / Gkv) (GQA without expanding k and v):
+// _flash_kernel) for float32 q, k and v: attention of G query groups over
+// Gkv kv groups, group g reading kv group g / (G / Gkv) (GQA without
+// expanding k and v):
 //   s_ij = (q_i . k_j) / sqrt(D), set to -1e30 where masked (k_pos > q_pos
 //          when causal, k_pos <= q_pos - window when windowed)
 //   out_i = sum_j softmax_j(s_i.) v_j
 // with the TPU kernel's online softmax over kv tiles: a running max m
 // (from -1e30), denominator l and fp32 accumulator, rescaled by
-// exp(m_old - m_new) at each tile, and out = acc / max(l, 1e-30). Inputs
-// are float32 or bfloat16; every product runs in fp32 from fp32-cast
-// inputs, as the TPU kernel's (preferred_element_type=float32); the
-// output is written in the inputs' dtype (bf16 rounded to nearest even).
+// exp(m_old - m_new) at each tile, and out = acc / max(l, 1e-30). Every
+// product runs in fp32, as the TPU kernel's (preferred_element_type=
+// float32).
 //
 // The TPU kernel walks (group, q block, kv block) in order with the
 // statistics in VMEM scratch. Here one block of 256 threads owns a
@@ -36,10 +37,9 @@
 // Bound on this card: operations. A causal launch at the prefill shape
 // (G = 32, S = T = 8192, D = 128) needs about 550 GFLOP (two products of
 // S^2 D / 2 per group), 8.2 ms at the 67 TFLOP/s fp32 rate, and moves
-// about 200 MB (0.06 ms). This kernel runs on the fp32 FMA units only;
-// bf16 tensor cores (wgmma) and TMA are later work. exp is expf, not
-// __expf (no --use_fast_math).
-#include <cuda_bf16.h>
+// about 200 MB (0.06 ms). This kernel runs on the fp32 FMA units only (an
+// fp32 product has no exact tensor-core form). exp is expf, not __expf (no
+// --use_fast_math).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,15 +55,6 @@ constexpr int FA_SPT = FA_BK / FA_TPR;    // scores a lane keeps per tile
 constexpr float FA_NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
     x += __shfl_xor_sync(FULL, x, 1);
     x += __shfl_xor_sync(FULL, x, 2);
@@ -77,11 +68,11 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // NV: float4 chunks a lane holds, so D <= 16 * NV (the padded width DP)
-template <typename T, int NV>
+template <int NV>
 __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, int n_rep, int s_len, int t_len, int d,
-        int causal, int window, float div, T* __restrict__ out) {
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, int n_rep, int s_len, int t_len, int d,
+        int causal, int window, float div, float* __restrict__ out) {
     constexpr int DP = 16 * NV;
     extern __shared__ float4 fa_smem[];
     float* ks = reinterpret_cast<float*>(fa_smem);   // [FA_BK][DP]
@@ -109,7 +100,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(
         for (int u = 0; u < 4; ++u) {
             const int col = (i * FA_TPR + sub) * 4 + u;
             e[u] = (row_ok && col < d)
-                ? to_f(q[(g * s_len + qi) * (int64_t)d + col]) : 0.f;
+                ? q[(g * s_len + qi) * (int64_t)d + col] : 0.f;
         }
         qr[i] = make_float4(e[0], e[1], e[2], e[3]);
         acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -128,8 +119,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(
         if (window > 0) kt_lo = max(0, (q0 - window + 1) / FA_BK);
     }
 
-    const T* kg = k + gkv * t_len * (int64_t)d;
-    const T* vg = v + gkv * t_len * (int64_t)d;
+    const float* kg = k + gkv * t_len * (int64_t)d;
+    const float* vg = v + gkv * t_len * (int64_t)d;
     for (int kt = kt_lo; kt < kt_hi; ++kt) {
         const int k0 = kt * FA_BK;
         __syncthreads();                             // the last tile is read
@@ -138,8 +129,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(
             const int key = k0 + r;
             const bool ok = key < t_len && col < d;
             const int64_t off = (int64_t)key * d + col;
-            ks[e] = ok ? to_f(kg[off]) : 0.f;
-            vs[e] = ok ? to_f(vg[off]) : 0.f;
+            ks[e] = ok ? kg[off] : 0.f;
+            vs[e] = ok ? vg[off] : 0.f;
         }
         __syncthreads();
 
@@ -208,66 +199,60 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attn_kernel(
 
     if (!row_ok) return;
     const float den = fmaxf(l, 1e-30f);
-    T* o = out + (g * s_len + qi) * (int64_t)d;
+    float* o = out + (g * s_len + qi) * (int64_t)d;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
         const int col = (i * FA_TPR + sub) * 4;
         const float e[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-            if (col + u < d) store(o + col + u, e[u] / den);
+            if (col + u < d) o[col + u] = e[u] / den;
     }
 }
 
-template <typename T, int NV>
+template <int NV>
 int launch(const void* q, const void* k, const void* v, int g, int n_rep,
            int s, int t, int d, int causal, int window, float div, void* out,
            cudaStream_t st) {
     const size_t smem = 2 * (size_t)FA_BK * 16 * NV * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int64_t blocks = (int64_t)g * ((s + FA_BQ - 1) / FA_BQ);
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    flash_attn_kernel<T, NV><<<(unsigned)blocks, FA_THREADS, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), n_rep, s, t, d, causal, window, div,
-        static_cast<T*>(out));
+    flash_attn_kernel<NV><<<(unsigned)blocks, FA_THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), n_rep, s, t, d, causal, window, div,
+        static_cast<float*>(out));
     return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, int g, int n_rep,
                int s, int t, int d, int causal, int window, float div,
                void* out, cudaStream_t st) {
     // three widths only (each instantiation unrolls 64 keys and costs
     // build time); a narrower head is zero-padded to the next one
-    if (d <= 64) return launch<T, 4>(q, k, v, g, n_rep, s, t, d, causal,
-                                     window, div, out, st);
-    if (d <= 128) return launch<T, 8>(q, k, v, g, n_rep, s, t, d, causal,
-                                      window, div, out, st);
-    return launch<T, 16>(q, k, v, g, n_rep, s, t, d, causal, window, div,
-                         out, st);
+    if (d <= 64) return launch<4>(q, k, v, g, n_rep, s, t, d, causal,
+                                  window, div, out, st);
+    if (d <= 128) return launch<8>(q, k, v, g, n_rep, s, t, d, causal,
+                                   window, div, out, st);
+    return launch<16>(q, k, v, g, n_rep, s, t, d, causal, window, div, out,
+                      st);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike); window 0 = none
+// q, k, v and out float32; window 0 = none
 extern "C" int repro_flash_attn(
-        const void* q, const void* k, const void* v, int dtype, int g,
-        int gkv, int s, int t, int d, int causal, int window, float div,
-        void* out, void* stream) {
+        const void* q, const void* k, const void* v, int g, int gkv, int s,
+        int t, int d, int causal, int window, float div, void* out,
+        void* stream) {
     if (g <= 0 || s <= 0) return 0;
     if (gkv < 1 || g % gkv || t < 1 || d < 1 || d > FA_MAX_D || window < 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int n_rep = g / gkv;
-    if (dtype == 0)
-        return dispatch_d<float>(q, k, v, g, n_rep, s, t, d, causal, window,
-                                 div, out, st);
-    if (dtype == 1)
-        return dispatch_d<__nv_bfloat16>(q, k, v, g, n_rep, s, t, d, causal,
-                                         window, div, out, st);
-    return (int)cudaErrorInvalidValue;
+    return dispatch_d(q, k, v, g, n_rep, s, t, d, causal, window, div, out,
+                      st);
 }

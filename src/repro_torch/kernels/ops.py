@@ -14,7 +14,7 @@ per-call `mode=` (callers forward `cfg.kernels_mode`) > backend default:
 There is no environment variable and no autotune cache yet. Each kernel
 module keeps an integer launch count, incremented only where it launches
 its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
-them.
+them (`reset_launch_counts` also clears `flash_attn`'s count by route).
 
 `dispatch` is the raw route. The named wrappers below it are what the
 models call: `gru_cell`, `memory_update_table`, `embed_attn`,
@@ -133,6 +133,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for spec in REGISTRY.values():
         spec.module.launches = 0
+    for route in _fa.launches_by_route:
+        _fa.launches_by_route[route] = 0
 
 
 # Differentiable kernels (kernels/autodiff.py): the routed forward, a

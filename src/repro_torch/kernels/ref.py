@@ -159,6 +159,19 @@ def flash_attn_ref(q, k, v, causal=True, window=None):
     return torch.einsum("gst,gtd->gsd", probs, v.float()).to(q.dtype)
 
 
+def bf16_excess(got, want32, tol):
+    """The largest |got - want32| beyond one bf16 ulp of want32 plus the
+    fp32 tolerance tol * max(1, max|want32|) (the reference rounds a value
+    that is itself within the fp32 tolerance), and the largest
+    |got - want32|: a bf16 output agrees when the first is <= 0."""
+    got, want32 = got.float(), want32.float()
+    mag = want32.abs().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got - want32).abs()
+    slack = tol * max(1.0, float(want32.abs().max()))
+    return float((diff - ulp - slack).max()), float(diff.max())
+
+
 def ssd_chunk_ref(q, k, v, lcum, h0):
     """One SSD / mLSTM chunk for each of G groups, in float32.
     q, k: (G, L, N); v: (G, L, P); lcum: (G, L) inclusive cumulative

@@ -100,10 +100,15 @@ def serve_mdgnn(args):
 def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
     """Greedy decode of `steps` tokens for a batch of 2 through a ported
     arch's reduced config, with random parameters from `seed`; prints
-    tokens/s and the device. Returns the (2, steps) generated tokens."""
+    tokens/s and the device. Returns the (2, steps) generated tokens.
+    Raises ValueError when `steps` exceeds the 128-slot cache."""
     from repro_torch.archs.api import get_model
     from repro_torch.configs import get_config
 
+    b, cache_len = 2, 128
+    if steps > cache_len:
+        raise ValueError(f"serve_zoo: {steps} decode steps do not fit the "
+                         f"cache (cache_len {cache_len})")
     dev = resolve_device(device)
     cfg = get_config(arch).reduced()
     model = get_model(cfg)
@@ -112,7 +117,6 @@ def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
             f"{arch}: the encoder prefill is not ported yet (ROADMAP Queue 1 "
             f"item 19: whisper)")
     params = model.init(torch.Generator(dev).manual_seed(seed), dev)
-    b, cache_len = 2, 128
     tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
     out = []
     with torch.no_grad():

@@ -209,9 +209,11 @@ def decode_attention(params, x, cache, pos: int, *, d_head: int,
     """One-token decode. x: (B, 1, d); pos: the token's position (int).
 
     For windowed layers the cache is a ring buffer (write slot pos %
-    cache_len). The new k and v are written into `cache` IN PLACE (the
-    JAX version returns updated copies; an 8,192-slot cache would be
-    copied every step); returns (y, cache)."""
+    cache_len); a global layer writes slot pos and raises ValueError when
+    pos >= cache_len (the JAX version's dynamic_update_slice clamps the
+    slot to the last one instead). The new k and v are written into
+    `cache` IN PLACE (the JAX version returns updated copies; an
+    8,192-slot cache would be copied every step); returns (y, cache)."""
     b_, s, _ = x.shape
     if s != 1:
         raise ValueError(f"decode_attention takes one token, got S={s}")
@@ -220,13 +222,16 @@ def decode_attention(params, x, cache, pos: int, *, d_head: int,
             "M-RoPE is not ported yet (ROADMAP Queue 1 item 19: VLM, "
             "apply_mrope)")
     pos = int(pos)
+    cache_len = cache["k"].shape[1]
+    if window is None and not 0 <= pos < cache_len:
+        raise ValueError(f"decode_attention: position {pos} is outside the "
+                         f"cache of a global layer (cache_len {cache_len})")
     q, k, v = _project_qkv(params, x, x, d_head)
     if rope_theta is not None:
         posv = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, rope_theta)
         k = apply_rope(k, posv, rope_theta)
     ck, cv = cache["k"], cache["v"]
-    cache_len = ck.shape[1]
     slot = pos % cache_len if window is not None else pos
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)

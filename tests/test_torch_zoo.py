@@ -408,6 +408,46 @@ def test_serve_zoo_cli_on_cpu(arch, capsys):
     assert "tok/s on CPU" in capsys.readouterr().out
 
 
+def test_decode_past_the_cache_raises():
+    """A global layer writes slot pos, so pos >= cache_len raises (JAX's
+    dynamic_update_slice clamps the slot to the last one instead) and
+    leaves the cache as it was; a windowed layer's ring buffer wraps."""
+    from repro_torch.nn.module import ParamBuilder
+    gen = torch.Generator().manual_seed(0)
+    b = ParamBuilder(gen)
+    attention.attention_init(b, "attn", 32, 4, 2, 8)
+    p = b.params["attn"]
+    x = torch.randn(2, 1, 32, generator=gen)
+    cache = attention.init_cache(2, 4, 2, 8, torch.float32)
+    for pos in range(4):
+        y, _ = attention.decode_attention(p, x, cache, pos, d_head=8)
+        assert tuple(y.shape) == (2, 1, 32)
+    before = {name: t.clone() for name, t in cache.items()}
+    with pytest.raises(ValueError, match=r"position 4 .*cache_len 4"):
+        attention.decode_attention(p, x, cache, 4, d_head=8)
+    for name, t in cache.items():
+        assert torch.equal(t, before[name]), name
+    ring = attention.init_cache(2, 4, 2, 8, torch.float32)
+    for pos in range(7):
+        y, _ = attention.decode_attention(p, x, ring, pos, d_head=8,
+                                          window=4)
+    assert bool(torch.isfinite(y).all())
+
+
+def test_serve_zoo_past_the_cache_raises(monkeypatch):
+    """`steps` beyond serve_zoo's 128-slot cache raise before any model is
+    built or any step runs."""
+    from repro_torch.archs import api as tapi
+    from repro_torch.launch import serve as tserve
+
+    def no_model(cfg):
+        raise AssertionError("serve_zoo built a model before checking steps")
+
+    monkeypatch.setattr(tapi, "get_model", no_model)
+    with pytest.raises(ValueError, match="cache_len 128"):
+        tserve.serve_zoo("qwen3-0.6b", 129, device="cpu")
+
+
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
