@@ -10,11 +10,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc;
    ptxas's registers, spills and shared memory for each instantiation of
    the bf16 flash_attn kernel, whose SASS must hold wgmma (HGMMA) and TMA
-   loads (UTMALDG).
+   loads (UTMALDG), and of gru_cell and embed_attn, whose SASS must hold
+   mma.sync (HMMA: their 3xTF32 products).
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
    large time gaps, D % 4 != 0, a misaligned start, K = 1, the K and E
    limits, Din != D, clip bounds hit exactly, both PRES delta modes; for
+   gru_cell M at its 64-row tile +- 1, D = 100 with Din = 172 and odd
+   widths (its 4-byte copies); for
+   embed_attn CONFIG's E = 100 with 2 heads at K = 10, R off its 32-row
+   tile at PRODUCTION widths, one table row shared by most slots; for
    flash_attn S = 1, ragged S, T != S, windows, n_rep 1/2/3/4, D 16 to
    256 (80, 96: not multiples of 64; 20: not of 8), S = 8,192, fp32 (the
    FMA kernel) and bf16 (the wgmma kernel, held within one bf16 ulp of
@@ -64,17 +69,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    wgmma route) and 16 greedy decode steps against an S-slot cache (ms a step;
    decode launches no kernel). cli-zoo: `python -m repro_torch.launch.serve
    --zoo` for both archs.
-10. kernels: each kernel and its plain version timed (CUDA events, median)
+10. kernels: each kernel and its plain version timed (CUDA events around
+   the Python call, median: `ms`, host work included where the card waits
+   for it; and `device_ms`, the kernel's own CUDA time a call from
+   torch.profiler)
    on the largest inputs it received in the phase that captured them (the
    serve phases' probe after their counters were read; gru_cell during
    the Alg. 1 train phases; pres_predict, neighbor_attn, pres_filter and
    memory_update in a probe of their train phases' path on the trained
    state; flash_attn and ssd_chunk in the zoo's bf16 prefill), compared
-   there, set beside the card's bound for that work and,
+   there, set beside the card's bound for that work (`work`) and,
    where one PyTorch call computes the same function, beside that call's
-   time (memory_update also beside gru_cell then pres_filter; flash_attn
-   with the route that ran, its products' TFLOP/s and its share of the
-   bound).
+   time, by events and on the device (memory_update also beside gru_cell
+   then pres_filter; flash_attn with the route that ran, its products'
+   TFLOP/s and its share of the bound; embed_attn with its route, the
+   fold, the U of its shape and the bound of the form before the fold).
 
 Every serve, train and zoo phase names the kernels its path must launch;
 any other kernel launched fails it. The launch counters are zeroed just
@@ -89,6 +98,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -100,10 +110,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor FLOP/s
-# and dense bf16 tensor-core FLOP/s
+# and dense bf16 and TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 # each output: |kernel - plain| <= TOL * max(1, max|that plain output|), the
 # fp32 sums running in another order; the outputs listed in EXACT (by
 # position) are copies, not sums, and must be equal (memory_update_table's
@@ -162,6 +173,12 @@ STEP_TOL = {"loss": 1e-5, "logits": 1e-4, "memory": 1e-5, "moments": 1e-2,
 AP_LIMIT = 2e-2
 
 
+# --profile windows, run after the kernel rows: on the H100 a profiler
+# session that follows such windows in the same process drops kernels,
+# and the rows' device_ms come from sessions of their own
+DEFERRED_PROFILES = []
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -204,6 +221,41 @@ def time_ms(fn, reps=None):
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps=5, tries=4):
+    """The device time of fn() in ms a call: the CUDA kernels (and copies)
+    torch.profiler records over `reps` calls after a warm-up, summed and
+    divided by the calls. Unlike `time_ms`, whose events bracket the
+    Python call and so take in the host's work when the card waits for it,
+    this counts only the card's own time. A session must record the same
+    number of kernels for every call. Late in a long run on the H100,
+    sessions now and then record none, in bursts (a fresh process never
+    did in 400 sessions), so a session that does not is run again after a
+    pause with twice the calls, up to `tries` times; then the measurement
+    is reported missing (None) rather than failing the run, since it
+    checks nothing about the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        calls = reps << attempt
+        if attempt:
+            time.sleep(0.05)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n >= calls and n % calls == 0:
+            return sum(e.self_device_time_total for e in events) / calls / 1e3
+    log(f"[device_ms] torch.profiler recorded {n} kernels in {calls} calls "
+        f"after {tries} sessions: device_ms not measured")
+    return None
+
+
 def attn_pairs(s, t, causal, window):
     """(query, key) pairs the causal / window mask leaves valid."""
     import numpy as np
@@ -218,9 +270,14 @@ def work(name, args, kw=None):
     at the fp32 peak or {peak: count}: each input read once,
     each output written once, counting only the rows and slots the data
     uses (valid gathers, selected writes, valid attention slots or pairs).
-    The attention's K/V projection is linear, so its table part is counted
-    once per distinct referenced row and only its time-encoding part per
-    slot."""
+    fp32 matrix products that run on the tensor cores (gru_cell's, and
+    embed_attn's per-row ones) count three TF32 products each at the TF32
+    peak: the least tensor-core work that keeps fp32 grade (one rounding
+    misses TOL). embed_attn counts the form its kernel takes at every
+    shape, the fold (q into Wk and the softmax's weighted sum into Wv, per
+    row with a valid slot; 2 H c multiply-adds and the time encoding per
+    valid slot); `direct_work` keeps the count of the form before it (K/V
+    projected per slot, the table part once per distinct row)."""
     kw = kw or {}
     f = 4
     if name == "flash_attn":
@@ -265,19 +322,19 @@ def work(name, args, kw=None):
         flops = valid * (2 * 3 * d * (din + d) + 20 * d)
         return nbytes, flops
     if name == "embed_attn":
-        h_self, tab, idx, dt, valid, tw, _, wq, wk, _ = args
-        r, ds = h_self.shape
-        din = tab.shape[1]
-        kk = idx.shape[1]
+        h_self, tab, _, _, valid, tw, _, wq, _, _ = args
+        ds = h_self.shape[1]
         e = wq.shape[1]
-        dtime = tw.shape[0]
+        c = tab.shape[1] + tw.shape[0]
+        heads = kw.get("n_heads", 1)
+        live = int(valid.any(1).sum())
         nv = int(valid.sum())
-        rows = int(idx[valid].unique().numel())
-        nbytes = (r * ds + rows * din + r * kk * 2 + 2 * tw.numel()
-                  + wq.numel() + 2 * wk.numel() + r * e) * f + r * kk
-        flops = (2 * r * ds * e + rows * 4 * din * e
-                 + nv * (4 * dtime * e + 4 * e + 2 * dtime))
-        return nbytes, flops
+        # per live row: q (ds x E), a_h = Wk_h q_h (E x c), g_h Wv_h
+        # (c x E); per valid slot: scores and weighted sum (2 H c each),
+        # the angle and cosine, the softmax's max, exp and sum per head
+        return direct_work(args)[0], {
+            PEAK_TF32: 3 * live * 2 * e * (ds + 2 * c),
+            PEAK_FP32: nv * (4 * heads * c + 2 * tw.shape[0] + 4 * heads)}
     if name == "link_score":
         h_src, h_items, w1, b1, w2, _ = args
         nb, d = h_src.shape
@@ -290,8 +347,8 @@ def work(name, args, kw=None):
         m, din = x.shape
         d = h.shape[1]
         nbytes = (m * (din + 2 * d) + w.numel() + u.numel() + b.numel()) * f
-        flops = m * (2 * 3 * d * (din + d) + 20 * d)
-        return nbytes, flops
+        return nbytes, {PEAK_TF32: 3 * m * 2 * 3 * d * (din + d),
+                        PEAK_FP32: m * 20 * d}
     if name == "pres_predict":
         s_prev, _, _ = args
         m, d = s_prev.shape
@@ -321,6 +378,26 @@ def work(name, args, kw=None):
                   + 1) * f
         return nbytes, m * (2 * 3 * d * (din + d) + 20 * d) + 10 * m * d
     raise SmokeFailure(f"no work count for kernel {name!r}")
+
+
+def direct_work(args):
+    """(bytes, flops) of embed_attn in the form before the fold, all at
+    the fp32 peak: q, the K/V projection's table part once per distinct
+    referenced row and its time-encoding part per valid slot, the scores
+    and weighted sum (the bound `work` gave before the fold)."""
+    h_self, tab, idx, _, valid, tw, _, wq, wk, _ = args
+    r, ds = h_self.shape
+    din = tab.shape[1]
+    kk = idx.shape[1]
+    e = wq.shape[1]
+    dtime = tw.shape[0]
+    nv = int(valid.sum())
+    rows = int(idx[valid].unique().numel())
+    nbytes = (r * ds + rows * din + r * kk * 2 + 2 * tw.numel()
+              + wq.numel() + 2 * wk.numel() + r * e) * 4 + r * kk
+    flops = (2 * r * ds * e + rows * 4 * din * e
+             + nv * (4 * dtime * e + 4 * e + 2 * dtime))
+    return nbytes, flops
 
 
 def shape_of(name, a):
@@ -428,24 +505,33 @@ def check_kernel(name, args, kw, label):
     return worst
 
 
-def check_wgmma_build(out_dir):
-    """Print ptxas's registers, shared memory, spills and any wgmma it
-    serialized for each instantiation of the wgmma flash_attn (none
-    should be), and require its SASS to hold
-    tensor-core products (HGMMA: wgmma) and TMA loads (UTMALDG)."""
+# the sources whose SASS must hold tensor-core products: HGMMA (wgmma) and
+# TMA loads (UTMALDG) for the bf16 flash_attn, HMMA (mma.sync) for the
+# 3xTF32 products of gru_cell and embed_attn
+TENSOR_CORE_SASS = {"flash_attn_wgmma": ("HGMMA", "UTMALDG"),
+                    "gru_cell": ("HMMA",), "embed_attn": ("HMMA",)}
+
+
+def check_tensor_core_build(out_dir):
+    """For each source of TENSOR_CORE_SASS, print ptxas's registers,
+    shared memory, spills (and any wgmma it serialized: none should be)
+    for each instantiation, and require its SASS to hold the instructions
+    listed there."""
     from repro_torch.kernels import _build
-    for line in (out_dir / "flash_attn_wgmma.log").read_text().splitlines():
-        if any(w in line for w in ("Compiling entry", "registers",
-                                   "spill", "Performance Loss")):
-            log(f"[build] ptxas {line.strip()}")
     tool = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(out_dir /
-                                              "flash_attn_wgmma.o")],
-                          capture_output=True, text=True, timeout=120).stdout
-    ops_ = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    log(f"[build] flash_attn_wgmma SASS: {json.dumps(ops_)}")
-    require(all(ops_.values()), f"flash_attn_wgmma.o lacks wgmma or TMA "
-            f"instructions: {ops_}")
+    for stem, need in TENSOR_CORE_SASS.items():
+        for line in (out_dir / f"{stem}.log").read_text().splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "Performance Loss")):
+                log(f"[build] ptxas {stem}: {line.strip()}")
+        sass = subprocess.run([str(tool), "-sass", str(out_dir /
+                                                   f"{stem}.o")],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        ops_ = {op: sass.count(op) for op in need}
+        log(f"[build] {stem} SASS: {json.dumps(ops_)}")
+        require(all(ops_.values()), f"{stem}.o lacks tensor-core (or TMA) "
+                f"instructions: {ops_}")
 
 
 # ---------------------------------------------------------------------------
@@ -484,27 +570,40 @@ def edge_cases(dev):
         cases.append(("memory_update_table", args,
                       dict(clip=1.0, delta_mode="transition"),
                       f"M={m} D={d} Din={din} masked={mfrac} hot={hot}"))
-    for r, u, kk, ds, din, dtime, e, heads, bad, dts in [
-            (1, 3, 1, 8, 8, 4, 8, 1, 0, 1.0),
-            (9, 12, 3, 12, 10, 6, 12, 2, 2, 10.0),
-            (37, 50, 16, 128, 128, 64, 128, 2, 3, 1e5),
-            (3, 40, 64, 16, 16, 8, 16, 2, 1, 1e3)]:
+    # embed_attn: R = 1 with K = 1, all-invalid rows, dt to 1e5, K = 64;
+    # CONFIG's E = 100 with 2 heads at K = 10 (dh = 50, c = 132: not
+    # multiples of 8), R not a multiple of the kernel's 32-row tile at
+    # PRODUCTION widths, one row of tab shared by most slots
+    for r, u, kk, ds, din, dtime, e, heads, bad, dts, hot in [
+            (1, 3, 1, 8, 8, 4, 8, 1, 0, 1.0, 0.0),
+            (9, 12, 3, 12, 10, 6, 12, 2, 2, 10.0, 0.0),
+            (37, 50, 16, 128, 128, 64, 128, 2, 3, 1e5, 0.0),
+            (3, 40, 64, 16, 16, 8, 16, 2, 1, 1e3, 0.0),
+            (200, 150, 10, 100, 100, 32, 100, 2, 5, 1e5, 0.0),
+            (65, 300, 16, 128, 128, 64, 128, 2, 3, 1e5, 0.0),
+            (96, 500, 16, 128, 128, 64, 128, 2, 0, 1e3, 0.9)]:
         valid = rng.random((r, kk)) < 0.7
         valid[:bad] = False
-        args = [t(f(r, ds)), t(f(u, din)),
-                t(rng.integers(0, u, (r, kk)).astype(np.int32)),
+        idx = rng.integers(0, u, (r, kk)).astype(np.int32)
+        idx[rng.random((r, kk)) < hot] = 7 % u
+        args = [t(f(r, ds)), t(f(u, din)), t(idx),
                 t((rng.random((r, kk)) * dts).astype(np.float32)), t(valid),
                 t(f(dtime)), t(f(dtime)), t(f(ds, e, sc=ds ** -0.5)),
                 t(f(din + dtime, e, sc=(din + dtime) ** -0.5)),
                 t(f(din + dtime, e, sc=(din + dtime) ** -0.5))]
         cases.append(("embed_attn", args, dict(n_heads=heads),
-                      f"R={r} K={kk} d={din} heads={heads} dt~{dts:g}"))
+                      f"R={r} K={kk} d={din} E={e} heads={heads} dt~{dts:g} "
+                      f"hot={hot}"))
     for b, i, d in [(1, 37, 16), (5, 130, 100), (33, 20000, 128)]:
         args = [t(f(b, d)), t(f(i, d)), t(f(2 * d, d, sc=d ** -0.5)),
                 t(f(d, sc=0.1)), t(f(d, 1, sc=d ** -0.5)), t(f(1))]
         cases.append(("link_score", args, {}, f"B={b} I={i} D={d}"))
+    # gru_cell: M = 1, ragged tiles, the CONFIG and PRODUCTION widths, M
+    # at the kernel's 64-row tile +- 1, D = 100 (not a multiple of its
+    # 16-column tile) with Din = 172, widths off its 16-byte copies
     for m, d, din in [(1, 8, 8), (37, 16, 24), (1000, 100, 100),
-                      (2000, 128, 128)]:
+                      (2000, 128, 128), (63, 128, 128), (65, 128, 128),
+                      (129, 100, 172), (45, 21, 37)]:
         args = [t(f(m, din)), t(f(m, d, sc=0.5)),
                 t(f(din, 3 * d, sc=din ** -0.5)), t(f(d, 3 * d, sc=d ** -0.5)),
                 t(f(3 * d, sc=0.1))]
@@ -795,8 +894,9 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
         eng.recommend_topk(topk_src, ts, k)
         torch.cuda.synchronize()
     if profile:
-        _profile(label, eng, stream, max_events + probe, profile, q_src[:64],
-                 q_dst[:64], q_t[:64])
+        DEFERRED_PROFILES.append(functools.partial(
+            _profile, label, eng, stream, max_events + probe, profile,
+            q_src[:64], q_dst[:64], q_t[:64]))
     return counts, cap.best, summary
 
 
@@ -821,6 +921,20 @@ def _profile(label, eng, stream, lo, ticks, q_src, q_dst, q_t):
         wall_us = (time.perf_counter() - t0) * 1e6
     _report_profile(label, prof, wall_us, f"{ticks} x (query 64 pairs + "
                     f"fold {step} events)")
+
+
+def _profile_prefill(label, model, params, tokens):
+    """torch.profiler over one prefill of the zoo model."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _last_logits(model, params, tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(label, prof, wall_us, "one bf16 prefill")
 
 
 def _report_profile(label, prof, wall_us, what):
@@ -1120,8 +1234,9 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                 f"step's by {got:.3g} (relative) > {lim}")
     summary["vs_plain"] = diff
     if profile:
-        _profile_train(label, cfg, opt, start, batches, negs,
-                       min(profile, steps - 1))
+        DEFERRED_PROFILES.append(functools.partial(
+            _profile_train, label, cfg, opt, start, batches, negs,
+            min(profile, steps - 1)))
     return counts, inputs, summary
 
 
@@ -1339,15 +1454,8 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
                        / float(np.median(step_ms[1:])))
         log(f"[{label}] {json.dumps(summary)}")
         if profile:
-            from torch.profiler import ProfilerActivity, profile as prof_
-            with prof_(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _last_logits(bf, params, tokens)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            _report_profile(label, prof, wall_us, "one bf16 prefill")
+            DEFERRED_PROFILES.append(functools.partial(
+                _profile_prefill, label, bf, params, tokens))
     del params, state
     torch.cuda.empty_cache()
     return counts, cap.best, summary
@@ -1439,10 +1547,12 @@ def kernel_row(name, spec, phase, inputs, counts):
     _, a, kw = inputs[name]
     err = check_kernel(name, a, kw, f"{phase} inputs")
     copies = [x.clone() for x in a]
-    ms = time_ms(lambda: ops.dispatch(name, *copies, mode="compiled", **kw))
+    run = lambda: ops.dispatch(name, *copies, mode="compiled", **kw)
+    ms = time_ms(run)
+    dev_ms = device_ms(run)
     plain_ms = time_ms(lambda: ops.dispatch(name, *copies, mode="oracle",
                                             **kw))
-    library_ms = None
+    library_ms = lib_dev_ms = None
     if name in LIBRARY:
         lib, lib_args = LIBRARY[name](copies)
         out = lib()
@@ -1461,12 +1571,20 @@ def kernel_row(name, spec, phase, inputs, counts):
             ok = lib_err <= TOL[name] * max(1.0, float(want.abs().max()))
         require(ok, f"{name}: the library yardstick differs by {lib_err}")
         library_ms = time_ms(lib)
+        lib_dev_ms = device_ms(lib)
     b_ms, b_by = bound(name, a, kw)
     row = {"name": name, "route": "cuda", "source": SOURCES[name],
            "replaces": spec.replaces, "launches": counts[name],
            "max_abs_err": err, "tol": TOL[name], "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library_ms, "shape": shape_of(name, a)}
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms,
+           "library_device_ms": lib_dev_ms, "shape": shape_of(name, a)}
+    if name == "embed_attn":
+        # the fold runs at every shape; the bound of the form before it
+        nbytes, flops = direct_work(a)
+        row.update(kernel_route="fold", U=a[1].shape[0],
+                   direct_bound_ms=max(nbytes / PEAK_BYTES,
+                                       flops / PEAK_FP32) * 1e3)
     if name == "flash_attn":
         # which of its two kernels ran, the products' rate and the share of
         # the bound (at the bf16 tensor-core peak for bf16 inputs)
@@ -1496,9 +1614,10 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="also write the result lines as JSON to this file")
     ap.add_argument("--profile", type=int, default=0, metavar="TICKS",
-                    help="also profile TICKS query+fold rounds at the end "
-                         "of each serve phase, and TICKS train steps after "
-                         "each train phase")
+                    help="also profile TICKS query+fold rounds of each "
+                         "serve phase's engine, TICKS train steps of each "
+                         "train phase and one prefill of each zoo phase, "
+                         "after the kernel rows")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the zoo phases' weights and tokens")
     ap.add_argument("--only", default=None,
@@ -1545,7 +1664,7 @@ def main(argv=None):
     _build.library()
     log(f"[build] {len(_build.sources())} sources for sm_90a in "
         f"{time.perf_counter() - t0:.1f}s")
-    check_wgmma_build(_build.build().parent)
+    check_tensor_core_build(_build.build().parent)
 
     seconds = {}
 
@@ -1744,6 +1863,9 @@ def main(argv=None):
                 and sorted({r["name"] for r in more_rows})
                 == sorted(set(names) - set(ZOO_KERNELS)),
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")
+    for run_profile in DEFERRED_PROFILES:
+        run_profile()
+    DEFERRED_PROFILES.clear()
     log(f"[seconds] {json.dumps(seconds)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     if args.out:

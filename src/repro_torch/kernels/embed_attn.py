@@ -4,8 +4,10 @@ multi-head softmax, weighted sum) as a hand-written CUDA kernel
 (`csrc/embed_attn.cu`).
 
 Replaces `repro/kernels/embed_attn.py::_embed_attn_pallas`; the source note
-in `csrc/embed_attn.cu` says what bounds it on the card and how its blocks
-replace the TPU kernel's sequential online-softmax grid axis.
+in `csrc/embed_attn.cu` says what bounds it on the card and how it folds
+the K/V projections out of the slots (q into Wk per row, the softmax's
+weighted sum of the slots' inputs into Wv per row), with the per-row
+products on the tensor cores at fp32 grade.
 
 `ops.embed_attn` takes the plain version (`ref.embed_attn_ref`) for tensors
 on the CPU and launches this kernel for CUDA tensors. `launches` counts
@@ -16,10 +18,27 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_SLOTS = 64     # K limit of the kernel (EA_SLOTS in the source)
+MAX_SLOTS = 64     # K limit of the kernel (EA_MAX_K in the source)
 MAX_E = 128        # E limit of the kernel (EA_MAX_E in the source)
+MAX_DIN = 256      # table width limit (EA_MAX_DIN): the kv registers a lane
+MAX_DTIME = 128    # time-encoding width limit (EA_MAX_DTIME)
+MAX_SMEM = 232448  # dynamic shared memory a block may take on the card
 
 launches = 0
+
+
+def _ld(width):
+    """Row stride of a shared A tile (tf32_ld in `csrc/tf32x3.cuh`)."""
+    return ((width + 7) & ~7) + 4
+
+
+def smem_bytes(ds, c, e):
+    """Dynamic shared memory of one block (Layout in the source): the
+    a / g tiles of two heads over the h_self tile, q, and the weight ring
+    of three 32 x 72 stages, for 32 rows."""
+    rows = 32
+    return 4 * (max(2 * rows * _ld(c), rows * _ld(ds)) + rows * _ld(e)
+                + 3 * 32 * 72)
 
 
 def embed_attn_cuda(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv, *,
@@ -37,10 +56,18 @@ def embed_attn_cuda(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv, *,
     if not 1 <= kk <= MAX_SLOTS:
         raise ValueError(f"embed_attn kernel supports 1 <= K <= {MAX_SLOTS}, "
                          f"got idx of shape {tuple(idx.shape)}")
-    if n_heads < 1 or e % n_heads or e % 4 or e > MAX_E:
-        raise ValueError(f"embed_attn kernel needs E % 4 == 0, E <= {MAX_E} "
-                         f"and E divisible by n_heads; got E={e}, "
+    if n_heads < 1 or e % n_heads or e > MAX_E:
+        raise ValueError(f"embed_attn kernel needs E <= {MAX_E} and E "
+                         f"divisible by n_heads; got E={e}, "
                          f"n_heads={n_heads}")
+    if not (1 <= din <= MAX_DIN and dtime <= MAX_DTIME):
+        raise ValueError(f"embed_attn kernel supports table widths 1 to "
+                         f"{MAX_DIN} and time encodings up to {MAX_DTIME}; "
+                         f"got Din={din}, d_time={dtime}")
+    if smem_bytes(ds, din + dtime, e) > MAX_SMEM:
+        raise ValueError(f"embed_attn kernel: widths ds={ds}, c={din + dtime}"
+                         f", E={e} need {smem_bytes(ds, din + dtime, e)} "
+                         f"bytes of shared memory a block, over {MAX_SMEM}")
     f32 = torch.float32
     _build.check_args("embed_attn", dev, [
         ("h_self", h_self, f32, (r, ds)), ("tab", tab, f32, (u, din)),

@@ -1,6 +1,6 @@
 """`gru_cell`: the GRU memory cell over M rows, as a hand-written CUDA
-kernel (`csrc/gru_cell.cu`, sharing its body with `memory_update.cu`
-through `csrc/gru_rows.cuh`).
+kernel (`csrc/gru_cell.cu`: both products on the tensor cores at fp32
+grade through `csrc/tf32x3.cuh`, the gates formed from the accumulators).
 
 Replaces `repro/kernels/gru_cell.py::_gru_cell_pallas`; the source note in
 `csrc/gru_cell.cu` says what bounds it on the card. It is the memory cell
