@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: nvcc builds every kernel under src/repro_torch/kernels/csrc;
    ptxas's registers, spills and shared memory for each instantiation of
    the bf16 flash_attn kernel, whose SASS must hold wgmma (HGMMA) and TMA
-   loads (UTMALDG), and of gru_cell and embed_attn, whose SASS must hold
+   loads (UTMALDG), and of gru_cell, embed_attn, memory_update (the table
+   kernel and the dense memory_update) and ssd_chunk, whose SASS must hold
    mma.sync (HMMA: their 3xTF32 products).
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
@@ -24,8 +25,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    256 (80, 96: not multiples of 64; 20: not of 8), S = 8,192, fp32 (the
    FMA kernel) and bf16 (the wgmma kernel, held within one bf16 ulp of
    the fp32 plain version);
-   for ssd_chunk L = 1, ragged L, N = 256 with P = 257, a large negative
-   lcum).
+   for ssd_chunk L = 1, ragged L, L = 64 and 65, N = 256 with P = 257 at
+   G = 1 and 8, P = 8 and 264, a large negative lcum; for the table kernel
+   M = 2,048 at D = Din = 128 with a hot node across a 64-row tile edge
+   and masked rows on tiles' first and last rows, M = 65, Din = 20 with
+   D = 12 (its 4-byte copies) across tiles).
 4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk. The same replay then runs
@@ -221,7 +225,7 @@ def time_ms(fn, reps=None):
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps=5, tries=4):
+def device_ms(fn, reps=5, tries=4, by_kernel=None):
     """The device time of fn() in ms a call: the CUDA kernels (and copies)
     torch.profiler records over `reps` calls after a warm-up, summed and
     divided by the calls. Unlike `time_ms`, whose events bracket the
@@ -232,7 +236,8 @@ def device_ms(fn, reps=5, tries=4):
     did in 400 sessions), so a session that does not is run again after a
     pause with twice the calls, up to `tries` times; then the measurement
     is reported missing (None) rather than failing the run, since it
-    checks nothing about the kernel."""
+    checks nothing about the kernel. `by_kernel`, a dict, receives each
+    kernel's own ms a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -250,6 +255,9 @@ def device_ms(fn, reps=5, tries=4):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         n = sum(e.count for e in events)
         if n >= calls and n % calls == 0:
+            if by_kernel is not None:
+                by_kernel.update({e.key: e.self_device_time_total / calls
+                                  / 1e3 for e in events})
             return sum(e.self_device_time_total for e in events) / calls / 1e3
     log(f"[device_ms] torch.profiler recorded {n} kernels in {calls} calls "
         f"after {tries} sessions: device_ms not measured")
@@ -270,10 +278,12 @@ def work(name, args, kw=None):
     at the fp32 peak or {peak: count}: each input read once,
     each output written once, counting only the rows and slots the data
     uses (valid gathers, selected writes, valid attention slots or pairs).
-    fp32 matrix products that run on the tensor cores (gru_cell's, and
-    embed_attn's per-row ones) count three TF32 products each at the TF32
-    peak: the least tensor-core work that keeps fp32 grade (one rounding
-    misses TOL). embed_attn counts the form its kernel takes at every
+    fp32 matrix products that run on the tensor cores (gru_cell's,
+    memory_update_table's and memory_update's gate products, ssd_chunk's
+    four, and embed_attn's per-row ones) count three TF32 products each at
+    the TF32 peak: the least tensor-core work that keeps fp32 grade (one
+    rounding misses TOL); `fp32_work` keeps the count of the first three
+    at the fp32 peak. embed_attn counts the form its kernel takes at every
     shape, the fold (q into Wk and the softmax's weighted sum into Wv, per
     row with a valid slot; 2 H c multiply-adds and the time encoding per
     valid slot); `direct_work` keeps the count of the form before it (K/V
@@ -298,29 +308,28 @@ def work(name, args, kw=None):
                             PEAK_FP32: g * pairs * 4}
         return nbytes, g * pairs * (4 * d + 4)
     if name == "ssd_chunk":
-        # per group: q k^T and the decayed scores on the L(L+1)/2 pairs
-        # j <= i (2N + 2), their product with v (2P), the carry-in
-        # (q * exp(lcum)) h0 and the state update (k * w)^T v (2LNP each,
-        # plus the scalings), exp(ltot) h0 + (2NP)
+        # per group: q k^T on the L(L+1)/2 pairs j <= i (2N) and their
+        # product with v (2P), the carry-in (q * exp(lcum)) h0 and the state
+        # update (k * w)^T v (2LNP each); the decays (2 a pair), the
+        # scalings (4LN) and exp(ltot) h0 + (2NP) on the fp32 units
         q, _, v, _, _ = args
         g, ll, n = q.shape
         p = v.shape[2]
         tri = ll * (ll + 1) // 2
-        flops = g * (tri * (2 * n + 2 + 2 * p) + 4 * ll * n * p
-                     + 4 * ll * n + 2 * n * p)
         nbytes = g * (2 * ll * n + 2 * ll * p + ll + 2 * n * p) * f
-        return nbytes, flops
+        return nbytes, {
+            PEAK_TF32: 3 * g * (tri * (2 * n + 2 * p) + 4 * ll * n * p),
+            PEAK_FP32: g * (2 * tri + 4 * ll * n + 2 * n * p)}
     if name == "memory_update_table":
-        table, _, x, g, w_idx, _, w, u, b, dm, _, _ = args
+        # x W on every occurrence, h U on the valid gathers; the gates and
+        # the filter (20 D and 10 D an occurrence) on the fp32 units
+        table, _, x, g = args[:4]
         n, d = table.shape
-        din = x.shape[1]
+        m, din = x.shape
         valid = int((g < n).sum())
-        written = int((w_idx < n).sum())
-        m = x.shape[0]
-        nbytes = (m * (din + d + 4) + (w.numel() + u.numel()
-                  + b.numel()) + valid * d + 3 * m * d + written * (d + 1)) * f
-        flops = valid * (2 * 3 * d * (din + d) + 20 * d)
-        return nbytes, flops
+        return fp32_work(name, args)[0], {
+            PEAK_TF32: 3 * 2 * 3 * d * (m * din + valid * d),
+            PEAK_FP32: m * 30 * d}
     if name == "embed_attn":
         h_self, tab, _, _, valid, tw, _, wq, _, _ = args
         ds = h_self.shape[1]
@@ -371,13 +380,44 @@ def work(name, args, kw=None):
         m, d = s_prev.shape
         return (5 * m * d + m + 1) * f, 10 * m * d
     if name == "memory_update":
+        x, h = args[:2]
+        m, din = x.shape
+        d = h.shape[1]
+        return fp32_work(name, args)[0], {
+            PEAK_TF32: 3 * m * 2 * 3 * d * (din + d), PEAK_FP32: m * 30 * d}
+    raise SmokeFailure(f"no work count for kernel {name!r}")
+
+
+def fp32_work(name, args):
+    """(bytes, flops) of memory_update_table, memory_update and ssd_chunk
+    with every operation at the fp32 peak (the bound `work` gave before
+    their products moved to the tensor cores)."""
+    f = 4
+    if name == "ssd_chunk":
+        q, _, v, _, _ = args
+        g, ll, n = q.shape
+        p = v.shape[2]
+        tri = ll * (ll + 1) // 2
+        flops = g * (tri * (2 * n + 2 + 2 * p) + 4 * ll * n * p
+                     + 4 * ll * n + 2 * n * p)
+        return work(name, args)[0], flops
+    if name == "memory_update_table":
+        table, _, x, g, w_idx, _, w, u, b, _, _, _ = args
+        n, d = table.shape
+        m, din = x.shape
+        valid = int((g < n).sum())
+        written = int((w_idx < n).sum())
+        nbytes = (m * (din + d + 4) + (w.numel() + u.numel()
+                  + b.numel()) + valid * d + 3 * m * d + written * (d + 1)) * f
+        return nbytes, valid * (2 * 3 * d * (din + d) + 20 * d)
+    if name == "memory_update":
         x, h, w, u, b = args[:5]
         m, din = x.shape
         d = h.shape[1]
         nbytes = (m * (din + 5 * d + 1) + w.numel() + u.numel() + b.numel()
                   + 1) * f
         return nbytes, m * (2 * 3 * d * (din + d) + 20 * d) + 10 * m * d
-    raise SmokeFailure(f"no work count for kernel {name!r}")
+    raise SmokeFailure(f"no fp32 work count for kernel {name!r}")
 
 
 def direct_work(args):
@@ -507,9 +547,11 @@ def check_kernel(name, args, kw, label):
 
 # the sources whose SASS must hold tensor-core products: HGMMA (wgmma) and
 # TMA loads (UTMALDG) for the bf16 flash_attn, HMMA (mma.sync) for the
-# 3xTF32 products of gru_cell and embed_attn
+# 3xTF32 products of gru_cell, embed_attn, memory_update (the table kernel
+# and the dense memory_update) and ssd_chunk
 TENSOR_CORE_SASS = {"flash_attn_wgmma": ("HGMMA", "UTMALDG"),
-                    "gru_cell": ("HMMA",), "embed_attn": ("HMMA",)}
+                    "gru_cell": ("HMMA",), "embed_attn": ("HMMA",),
+                    "memory_update": ("HMMA",), "ssd_chunk": ("HMMA",)}
 
 
 def check_tensor_core_build(out_dir):
@@ -547,10 +589,17 @@ def edge_cases(dev):
     rng = np.random.default_rng(0)
     f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
     cases = []
-    for m, n, d, din, mfrac, hot in [(200, 50, 16, 24, 0.0, 70),
-                                     (24, 10, 8, 8, 0.4, 0), (1, 5, 8, 8, 0, 0),
-                                     (12, 30, 100, 100, 0.2, 3),
-                                     (16, 9, 12, 20, 0.1, 5)]:
+    # memory_update_table: a hot node, masked rows, M = 1, Din != D; M at
+    # the kernel's 64-row tile + 1, M = 2,048 at PRODUCTION widths with the
+    # hot node's 150 occurrences across a tile edge and masked rows on
+    # tiles' first and last rows (`edge_rows`), widths off its 16-byte
+    # copies (D = 12, Din = 20) over three tiles
+    for m, n, d, din, mfrac, hot, edge_rows in [
+            (200, 50, 16, 24, 0.0, 70, ()), (24, 10, 8, 8, 0.4, 0, ()),
+            (1, 5, 8, 8, 0, 0, ()), (12, 30, 100, 100, 0.2, 3, ()),
+            (16, 9, 12, 20, 0.1, 5, ()), (65, 40, 128, 128, 0.1, 9, ()),
+            (2048, 500, 128, 128, 0.05, 150, (0, 63, 64, 127, 2047)),
+            (150, 60, 12, 20, 0.1, 20, (0, 63, 64))]:
         nodes = rng.integers(0, n, m)
         if hot:
             nodes[rng.choice(m, hot, replace=False)] = 7 % n
@@ -561,6 +610,8 @@ def edge_cases(dev):
         sel = mdgnn._last_occurrence_flags(tn, tt, tm)
         gidx = torch.where(tm, tn, n + 1)[order].to(torch.int32)
         widx = torch.where(sel, tn, n)[order].to(torch.int32)
+        gidx[list(edge_rows)] = n + 1
+        widx[list(edge_rows)] = n
         args = [t(f(n, d, sc=0.5)), t(f(n)), t(f(m, din)), gidx, widx,
                 tt[order].contiguous(), t(f(din, 3 * d, sc=din ** -0.5)),
                 t(f(d, 3 * d, sc=d ** -0.5)), t(f(3 * d, sc=0.1)),
@@ -569,7 +620,8 @@ def edge_cases(dev):
                 t(np.float32(0.37))]
         cases.append(("memory_update_table", args,
                       dict(clip=1.0, delta_mode="transition"),
-                      f"M={m} D={d} Din={din} masked={mfrac} hot={hot}"))
+                      f"M={m} D={d} Din={din} masked={mfrac} hot={hot} "
+                      f"masked_rows={list(edge_rows)}"))
     # embed_attn: R = 1 with K = 1, all-invalid rows, dt to 1e5, K = 64;
     # CONFIG's E = 100 with 2 heads at K = 10 (dh = 50, c = 132: not
     # multiples of 8), R not a multiple of the kernel's 32-row tile at
@@ -644,9 +696,10 @@ def edge_cases(dev):
                           dict(clip=1.0, delta_mode=mode),
                           f"M={m} D={d} offset={off} {mode}"))
     # memory_update (dense): M = 1, M = 129 (a ragged last block), Din != D,
-    # the CONFIG and PRODUCTION widths, both delta modes
+    # the CONFIG and PRODUCTION widths, M at the 64-row tile + 1, widths
+    # off the 16-byte copies, both delta modes
     for m, d, din in [(1, 8, 8), (129, 16, 16), (37, 20, 36), (1000, 100, 100),
-                      (2000, 128, 128)]:
+                      (2000, 128, 128), (65, 128, 128), (45, 21, 37)]:
         args = [t(f(m, din)), t(f(m, d, sc=0.5)),
                 t(f(din, 3 * d, sc=din ** -0.5)), t(f(d, 3 * d, sc=d ** -0.5)),
                 t(f(3 * d, sc=0.1)), t(f(m, d, sc=0.3)),
@@ -681,12 +734,17 @@ def edge_cases(dev):
                           f"G={g} Gkv={gkv} S={s_} T={t_} D={d} "
                           f"causal={causal} window={window} "
                           f"{str(dt).replace('torch.', '')}"))
-    # ssd_chunk: L = 1, ragged L (not a multiple of the 16-row and 32-row
-    # tiles), the xLSTM widths N = 256, P = 257 (and its reduced N = 64,
-    # P = 65), a large negative lcum (exp underflows to 0), P above 256
+    # ssd_chunk: L = 1, ragged L (not a multiple of the kernel's 32-row
+    # tiles), L = 64 and 65 (two tiles exactly, and one row more), the xLSTM
+    # widths N = 256, P = 257 at G = 8 and G = 1 (and its reduced N = 64,
+    # P = 65), a large negative lcum (exp underflows to 0), P above 256 (a
+    # third slab), N = 33 (not a multiple of 8), P = 8 (one column tile)
+    # and P = 264 (33 full tiles)
     for g, ll, n, p, lsc in [(1, 1, 8, 9, 0.05), (3, 100, 16, 17, 0.05),
                              (8, 256, 256, 257, 0.05), (2, 300, 64, 65, 0.05),
-                             (2, 256, 256, 257, 4.0), (1, 40, 33, 400, 0.5)]:
+                             (2, 256, 256, 257, 4.0), (1, 40, 33, 400, 0.5),
+                             (2, 64, 64, 8, 0.05), (1, 65, 40, 264, 0.05),
+                             (1, 256, 256, 257, 0.05)]:
         lcum = np.cumsum(-np.abs(f(g, ll, sc=lsc)), -1).astype(np.float32)
         args = [t(f(g, ll, n, sc=0.1)), t(f(g, ll, n, sc=0.1)),
                 t(f(g, ll, p, sc=0.5)), t(lcum), t(f(g, n, p, sc=0.5))]
@@ -1549,7 +1607,8 @@ def kernel_row(name, spec, phase, inputs, counts):
     copies = [x.clone() for x in a]
     run = lambda: ops.dispatch(name, *copies, mode="compiled", **kw)
     ms = time_ms(run)
-    dev_ms = device_ms(run)
+    parts = {}
+    dev_ms = device_ms(run, by_kernel=parts)
     plain_ms = time_ms(lambda: ops.dispatch(name, *copies, mode="oracle",
                                             **kw))
     library_ms = lib_dev_ms = None
@@ -1579,6 +1638,14 @@ def kernel_row(name, spec, phase, inputs, counts):
            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": library_ms,
            "library_device_ms": lib_dev_ms, "shape": shape_of(name, a)}
+    if len(parts) > 1:
+        # a call of several kernels (the table kernel's two phases): each
+        row["device_ms_by_kernel"] = parts
+    if name in ("memory_update_table", "memory_update", "ssd_chunk"):
+        # the bound with every operation on the fp32 units (fp32_work)
+        nbytes, flops = fp32_work(name, a)
+        row["fp32_bound_ms"] = max(nbytes / PEAK_BYTES,
+                                   flops / PEAK_FP32) * 1e3
     if name == "embed_attn":
         # the fold runs at every shape; the bound of the form before it
         nbytes, flops = direct_work(a)

@@ -25,25 +25,31 @@
 // materialised.
 //
 // Bound on this card: at the serving shapes (M = 32..2048, D = Din = 100 or
-// 128) the gate products are 2 * M * (Din + D) * 3D FLOPs (0.25 GFLOP at
-// M = 2048, D = Din = 100) against a few MB of rows, so the fp32 FMA rate
-// bounds it. W + U (240 KB at D = 100) exceed one block's shared memory, so
-// the weights are read through L2 with __ldg: each thread owns one output
-// column j, loads W[k, j], W[k, D + j], W[k, 2D + j] once per k and reuses
-// them over the block's GRU_ROWS occurrences, whose x and h rows sit in
-// shared memory (a broadcast read per k); that GRU body is shared with
-// gru_cell.cu (gru_rows.cuh). The filter runs on the column in registers,
-// so s_meas never goes back to memory before it. fp32 FMA, no tensor cores
-// yet.
+// 128) the gate products are 2 * M * (Din + D) * 3D FLOPs (0.40 GFLOP at
+// M = 2048, D = Din = 128) against a few MB of rows: a few microseconds on
+// the tensor cores at fp32 grade (three TF32 products a step). Phase 1 is
+// gru_tile.cuh's GRU tile, written once for this file and gru_cell.cu: 64
+// occurrences x 16 output columns a block, the depth split over two halves
+// of four warps, the weight panels streamed through a three-stage cp.async
+// ring, so each 64-row tile reads W and U (393 KB at D = Din = 128) once
+// through L2. Its h rows are gathered through gidx by the
+// copies themselves (zero-filled for a masked occurrence); its epilogue
+// forms the gates in the plain version's order and runs the filter
+// (pres_rows.cuh) on the registers, so s_meas never goes back to memory
+// before it. M = 2048, D = 128 gives 32 x 8 = 256 blocks; CONFIG's
+// M = 512, D = 100 gives 8 x 7 = 56.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gru_rows.cuh"
+#include "gru_tile.cuh"
 #include "pres_rows.cuh"
 
 namespace {
 
-__global__ void memory_update_rows_kernel(
+// Phase 1: VEC as in gru_tile.cuh; GATHER: h = table[gidx[r]], else h =
+// table[r] (the dense form)
+template <bool VEC, bool GATHER>
+__global__ void __launch_bounds__(GT_THREADS) memory_update_rows_kernel(
         const float* __restrict__ table, int64_t n_rows, int d,
         const float* __restrict__ x, int din,
         const int32_t* __restrict__ gidx,
@@ -54,51 +60,35 @@ __global__ void memory_update_rows_kernel(
         int m,
         float* __restrict__ s_meas, float* __restrict__ fused,
         float* __restrict__ delta) {
-    extern __shared__ float smem[];
-    float* xs = smem;                      // GRU_ROWS x din
-    float* hs = smem + GRU_ROWS * din;     // GRU_ROWS x d
-    const int row0 = blockIdx.x * GRU_ROWS;
-    const int nrows = min(GRU_ROWS, m - row0);
-    gru_stage_rows(x, din, table, n_rows, d, gidx, row0, nrows, xs, hs);
-    __syncthreads();
-
+    extern __shared__ __align__(16) float ring[];   // GT_SMEM bytes
     const float gamma = *gamma_ptr;
     const float omg = __fsub_rn(1.0f, gamma);
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-        float sm[GRU_ROWS];
-        gru_column(xs, hs, din, d, w, u, b, j, sm);
-#pragma unroll
-        for (int r = 0; r < GRU_ROWS; ++r) {
-            if (r < nrows) {
-                const int64_t o = (int64_t)(row0 + r) * d + j;
-                float fu, de;
-                pres_filter_elem(hs[r * d + j], sm[r], dmean[o],
-                                 scale[row0 + r], gamma, omg, clip,
-                                 innovation, fu, de);
-                s_meas[o] = sm[r];
-                fused[o] = fu;
-                delta[o] = de;
-            }
-        }
-    }
+    gru_tile<VEC, GATHER>(
+        x, din, table, n_rows, d, gidx, w, u, m, ring,
+        [&](int row, int j, const GruSums& s, float hv) {
+            const float sm = gru_gates(s, b, d, j, hv);
+            const int64_t o = (int64_t)row * d + j;
+            float fu, de;
+            pres_filter_elem(hv, sm, dmean[o], scale[row], gamma, omg, clip,
+                             innovation, fu, de);
+            s_meas[o] = sm;
+            fused[o] = fu;
+            delta[o] = de;
+        });
 }
 
+// Phase 2: a block a selected row (widx[r] < N): the fused row into the
+// table, its time into last_t; the others return at once
 __global__ void memory_update_scatter_kernel(
         float* __restrict__ table, float* __restrict__ last_t,
         int64_t n_rows, int d, const int32_t* __restrict__ widx,
-        const float* __restrict__ times, const float* __restrict__ fused,
-        int m) {
-    const int64_t total = (int64_t)m * d;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += (int64_t)gridDim.x * blockDim.x) {
-        const int r = (int)(i / d);
-        const int c = (int)(i - (int64_t)r * d);
-        const int64_t wi = widx[r];
-        if (wi >= 0 && wi < n_rows) {
-            table[wi * d + c] = fused[i];
-            if (c == 0) last_t[wi] = times[r];
-        }
-    }
+        const float* __restrict__ times, const float* __restrict__ fused) {
+    const int r = blockIdx.x;
+    const int64_t wi = widx[r];
+    if (wi < 0 || wi >= n_rows) return;
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+        table[wi * d + c] = fused[(int64_t)r * d + c];
+    if (threadIdx.x == 0) last_t[wi] = times[r];
 }
 
 // Phase 1 over m rows: h = table[gidx[r]] (gidx = nullptr: h = table[r]).
@@ -107,11 +97,22 @@ int launch_rows(const void* table, int64_t n_rows, int d, const void* x,
                 const void* b, const void* dmean, const void* scale,
                 const void* gamma, float clip, int innovation, int m,
                 void* s_meas, void* fused, void* delta, cudaStream_t st) {
-    const size_t smem = sizeof(float) * GRU_ROWS * (size_t)(din + d);
-    cudaError_t e = gru_set_smem(memory_update_rows_kernel, smem);
+    if (din < 1 || d < 1) return (int)cudaErrorInvalidValue;
+    auto aligned = [](const void* p) {
+        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    const bool vec = din % 4 == 0 && d % 4 == 0 && aligned(table) &&
+                     aligned(x) && aligned(w) && aligned(u);
+    const auto kernel =
+        gidx ? (vec ? memory_update_rows_kernel<true, true>
+                    : memory_update_rows_kernel<false, true>)
+             : (vec ? memory_update_rows_kernel<true, false>
+                    : memory_update_rows_kernel<false, false>);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GT_SMEM);
     if (e != cudaSuccess) return (int)e;
-    const int blocks = (m + GRU_ROWS - 1) / GRU_ROWS;
-    memory_update_rows_kernel<<<blocks, GRU_THREADS, smem, st>>>(
+    const dim3 grid((m + GT_ROWS - 1) / GT_ROWS, (d + GT_COLS - 1) / GT_COLS);
+    kernel<<<grid, GT_THREADS, GT_SMEM, st>>>(
         static_cast<const float*>(table), n_rows, d,
         static_cast<const float*>(x), din,
         static_cast<const int32_t*>(gidx),
@@ -138,13 +139,10 @@ extern "C" int repro_memory_update_table(
                           scale, gamma, clip, innovation, m, s_meas, fused,
                           delta, st);
     if (err != 0) return err;
-    const int64_t total = (int64_t)m * d;
-    const int threads = 256;
-    const int sblocks = (int)((total + threads - 1) / threads);
-    memory_update_scatter_kernel<<<sblocks, threads, 0, st>>>(
+    memory_update_scatter_kernel<<<m, 128, 0, st>>>(
         static_cast<float*>(table), static_cast<float*>(last_t), n_rows, d,
         static_cast<const int32_t*>(widx), static_cast<const float*>(times),
-        static_cast<const float*>(fused), m);
+        static_cast<const float*>(fused));
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 """`ssd_chunk`: one chunk of the chunked linear recurrence (SSD / mLSTM)
 for each of G groups, as a hand-written CUDA kernel (`csrc/ssd_chunk.cu`:
-the output rows and the carried state split over blocks of 16 rows each).
+all four products on the tensor cores at fp32 grade through
+`csrc/tf32x3.cuh`, over blocks of 32 rows of y, walking the key tiles
+flash-style, or of the carried state, each on a slab of P columns).
 It is the per-chunk math of `nn/ssm.py::chunked_linear_rnn` (the zoo's
 mLSTM prefill).
 

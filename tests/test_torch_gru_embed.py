@@ -50,20 +50,22 @@ def _tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _mm3(a, b, split=True):
+def _mm3(a, b, split=True, acc=None):
     """a @ b as the kernels form it: per 8-deep step, the three TF32
     products (one with split=False: tf32(a) tf32(b)) added to an fp32
     accumulator in turn, each product exact (TF32 mantissas multiply
-    exactly in fp64)."""
+    exactly in fp64). Leading dimensions are batch dimensions; `acc`, if
+    given, is the fp32 accumulator the steps add to (else zeros)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     terms = [(a_hi, b_hi)]
     if split:
         terms = [(_tf32(a - a_hi), b_hi), (a_hi, _tf32(b - b_hi))] + terms
-    acc = torch.zeros(a.shape[0], b.shape[1])
-    for k0 in range(0, a.shape[1], 8):
+    if acc is None:
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
         for x, y in terms:
-            acc = (acc.double() + x[:, k0:k0 + 8].double()
-                   @ y[k0:k0 + 8].double()).float()
+            acc = (acc.double() + x[..., k0:k0 + 8].double()
+                   @ y[..., k0:k0 + 8, :].double()).float()
     return acc
 
 
