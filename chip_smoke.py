@@ -26,7 +26,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    FMA kernel) and bf16 (the wgmma kernel, held within one bf16 ulp of
    the fp32 plain version);
    for ssd_chunk L = 1, ragged L, L = 64 and 65, N = 256 with P = 257 at
-   G = 1 and 8, P = 8 and 264, a large negative lcum; for the table kernel
+   G = 1 and 8, P = 8 and 264, a large negative lcum, G = 3 with groups
+   of v and h0 off 16-byte boundaries (L P and N P odd); for the table kernel
    M = 2,048 at D = Din = 128 with a hot node across a 64-row tile edge
    and masked rows on tiles' first and last rows, M = 65, Din = 20 with
    D = 12 (its 4-byte copies) across tiles).
@@ -282,7 +283,7 @@ def work(name, args, kw=None):
     memory_update_table's and memory_update's gate products, ssd_chunk's
     four, and embed_attn's per-row ones) count three TF32 products each at
     the TF32 peak: the least tensor-core work that keeps fp32 grade (one
-    rounding misses TOL); `fp32_work` keeps the count of the first three
+    rounding misses TOL); `fp32_flops` keeps the count of the first three
     at the fp32 peak. embed_attn counts the form its kernel takes at every
     shape, the fold (q into Wk and the softmax's weighted sum into Wv, per
     row with a valid slot; 2 H c multiply-adds and the time encoding per
@@ -323,11 +324,14 @@ def work(name, args, kw=None):
     if name == "memory_update_table":
         # x W on every occurrence, h U on the valid gathers; the gates and
         # the filter (20 D and 10 D an occurrence) on the fp32 units
-        table, _, x, g = args[:4]
+        table, _, x, g, w_idx, _, w, u, b = args[:9]
         n, d = table.shape
         m, din = x.shape
         valid = int((g < n).sum())
-        return fp32_work(name, args)[0], {
+        written = int((w_idx < n).sum())
+        nbytes = (m * (din + d + 4) + (w.numel() + u.numel()
+                  + b.numel()) + valid * d + 3 * m * d + written * (d + 1)) * f
+        return nbytes, {
             PEAK_TF32: 3 * 2 * 3 * d * (m * din + valid * d),
             PEAK_FP32: m * 30 * d}
     if name == "embed_attn":
@@ -380,43 +384,37 @@ def work(name, args, kw=None):
         m, d = s_prev.shape
         return (5 * m * d + m + 1) * f, 10 * m * d
     if name == "memory_update":
-        x, h = args[:2]
-        m, din = x.shape
-        d = h.shape[1]
-        return fp32_work(name, args)[0], {
-            PEAK_TF32: 3 * m * 2 * 3 * d * (din + d), PEAK_FP32: m * 30 * d}
-    raise SmokeFailure(f"no work count for kernel {name!r}")
-
-
-def fp32_work(name, args):
-    """(bytes, flops) of memory_update_table, memory_update and ssd_chunk
-    with every operation at the fp32 peak (the bound `work` gave before
-    their products moved to the tensor cores)."""
-    f = 4
-    if name == "ssd_chunk":
-        q, _, v, _, _ = args
-        g, ll, n = q.shape
-        p = v.shape[2]
-        tri = ll * (ll + 1) // 2
-        flops = g * (tri * (2 * n + 2 + 2 * p) + 4 * ll * n * p
-                     + 4 * ll * n + 2 * n * p)
-        return work(name, args)[0], flops
-    if name == "memory_update_table":
-        table, _, x, g, w_idx, _, w, u, b, _, _, _ = args
-        n, d = table.shape
-        m, din = x.shape
-        valid = int((g < n).sum())
-        written = int((w_idx < n).sum())
-        nbytes = (m * (din + d + 4) + (w.numel() + u.numel()
-                  + b.numel()) + valid * d + 3 * m * d + written * (d + 1)) * f
-        return nbytes, valid * (2 * 3 * d * (din + d) + 20 * d)
-    if name == "memory_update":
         x, h, w, u, b = args[:5]
         m, din = x.shape
         d = h.shape[1]
         nbytes = (m * (din + 5 * d + 1) + w.numel() + u.numel() + b.numel()
                   + 1) * f
-        return nbytes, m * (2 * 3 * d * (din + d) + 20 * d) + 10 * m * d
+        return nbytes, {
+            PEAK_TF32: 3 * m * 2 * 3 * d * (din + d), PEAK_FP32: m * 30 * d}
+    raise SmokeFailure(f"no work count for kernel {name!r}")
+
+
+def fp32_flops(name, args):
+    """The operations of memory_update_table, memory_update and ssd_chunk
+    with every one at the fp32 peak (the bound `work` gave before their
+    products moved to the tensor cores); their bytes are `work`'s."""
+    if name == "ssd_chunk":
+        q, _, v, _, _ = args
+        g, ll, n = q.shape
+        p = v.shape[2]
+        tri = ll * (ll + 1) // 2
+        return g * (tri * (2 * n + 2 + 2 * p) + 4 * ll * n * p
+                    + 4 * ll * n + 2 * n * p)
+    if name == "memory_update_table":
+        table, _, x, g = args[:4]
+        n, d = table.shape
+        din = x.shape[1]
+        return int((g < n).sum()) * (2 * 3 * d * (din + d) + 20 * d)
+    if name == "memory_update":
+        x, h = args[:2]
+        m, din = x.shape
+        d = h.shape[1]
+        return m * (2 * 3 * d * (din + d) + 20 * d) + 10 * m * d
     raise SmokeFailure(f"no fp32 work count for kernel {name!r}")
 
 
@@ -738,13 +736,15 @@ def edge_cases(dev):
     # tiles), L = 64 and 65 (two tiles exactly, and one row more), the xLSTM
     # widths N = 256, P = 257 at G = 8 and G = 1 (and its reduced N = 64,
     # P = 65), a large negative lcum (exp underflows to 0), P above 256 (a
-    # third slab), N = 33 (not a multiple of 8), P = 8 (one column tile)
-    # and P = 264 (33 full tiles)
+    # third slab), N = 33 (not a multiple of 8), P = 8 (one column tile),
+    # P = 264 (33 full tiles), and G = 3 with L P (and N P) odd, so the
+    # later groups' v (and h0) start off a 16-byte boundary
     for g, ll, n, p, lsc in [(1, 1, 8, 9, 0.05), (3, 100, 16, 17, 0.05),
                              (8, 256, 256, 257, 0.05), (2, 300, 64, 65, 0.05),
                              (2, 256, 256, 257, 4.0), (1, 40, 33, 400, 0.5),
                              (2, 64, 64, 8, 0.05), (1, 65, 40, 264, 0.05),
-                             (1, 256, 256, 257, 0.05)]:
+                             (1, 256, 256, 257, 0.05), (3, 3, 33, 9, 0.05),
+                             (3, 51, 64, 257, 0.05)]:
         lcum = np.cumsum(-np.abs(f(g, ll, sc=lsc)), -1).astype(np.float32)
         args = [t(f(g, ll, n, sc=0.1)), t(f(g, ll, n, sc=0.1)),
                 t(f(g, ll, p, sc=0.5)), t(lcum), t(f(g, n, p, sc=0.5))]
@@ -1642,10 +1642,10 @@ def kernel_row(name, spec, phase, inputs, counts):
         # a call of several kernels (the table kernel's two phases): each
         row["device_ms_by_kernel"] = parts
     if name in ("memory_update_table", "memory_update", "ssd_chunk"):
-        # the bound with every operation on the fp32 units (fp32_work)
-        nbytes, flops = fp32_work(name, a)
+        # the bound with every operation on the fp32 units (fp32_flops)
+        nbytes = work(name, a, kw)[0]
         row["fp32_bound_ms"] = max(nbytes / PEAK_BYTES,
-                                   flops / PEAK_FP32) * 1e3
+                                   fp32_flops(name, a) / PEAK_FP32) * 1e3
     if name == "embed_attn":
         # the fold runs at every shape; the bound of the form before it
         nbytes, flops = direct_work(a)

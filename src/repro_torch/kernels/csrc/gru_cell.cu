@@ -46,20 +46,10 @@ extern "C" int repro_gru_cell(
         const void* x, int din, const void* h, int d, const void* w,
         const void* u, const void* b, int m, void* out, void* stream) {
     if (m <= 0) return 0;
-    if (din < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((m + GT_ROWS - 1) / GT_ROWS, (d + GT_COLS - 1) / GT_COLS);
-    auto aligned = [](const void* p) {
-        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
-    const bool vec = din % 4 == 0 && d % 4 == 0 && aligned(x) &&
-                     aligned(h) && aligned(w) && aligned(u);
-    const auto kernel = vec ? gru_cell_kernel<true> : gru_cell_kernel<false>;
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<grid, GT_THREADS, GT_SMEM, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), din, static_cast<const float*>(h), d,
-        static_cast<const float*>(w), static_cast<const float*>(u),
-        static_cast<const float*>(b), m, static_cast<float*>(out));
-    return (int)cudaGetLastError();
+    return gru_tile_launch(
+        gru_cell_kernel<true>, gru_cell_kernel<false>, x, din, h, d, w, u, m,
+        static_cast<cudaStream_t>(stream), static_cast<const float*>(x), din,
+        static_cast<const float*>(h), d, static_cast<const float*>(w),
+        static_cast<const float*>(u), static_cast<const float*>(b), m,
+        static_cast<float*>(out));
 }

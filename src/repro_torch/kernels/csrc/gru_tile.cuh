@@ -272,4 +272,27 @@ __device__ __forceinline__ void gru_tile(
         }
 }
 
+// The host half, shared by gru_cell.cu and memory_update.cu: launches
+// vec_kernel (VEC true) when Din and D are multiples of 4 and x, h, w and
+// u are 16-byte aligned, else plain_kernel, over the tile grid of m rows
+// and d output columns with GT_SMEM bytes of ring; args are the kernel's.
+template <class Kernel, class... Args>
+int gru_tile_launch(Kernel vec_kernel, Kernel plain_kernel, const void* x,
+                    int din, const void* h, int d, const void* w,
+                    const void* u, int m, cudaStream_t st, Args... args) {
+    if (din < 1 || d < 1) return (int)cudaErrorInvalidValue;
+    auto aligned = [](const void* p) {
+        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    const bool vec = din % 4 == 0 && d % 4 == 0 && aligned(x) &&
+                     aligned(h) && aligned(w) && aligned(u);
+    const Kernel kernel = vec ? vec_kernel : plain_kernel;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((m + GT_ROWS - 1) / GT_ROWS, (d + GT_COLS - 1) / GT_COLS);
+    kernel<<<grid, GT_THREADS, GT_SMEM, st>>>(args...);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace

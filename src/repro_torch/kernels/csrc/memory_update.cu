@@ -97,22 +97,12 @@ int launch_rows(const void* table, int64_t n_rows, int d, const void* x,
                 const void* b, const void* dmean, const void* scale,
                 const void* gamma, float clip, int innovation, int m,
                 void* s_meas, void* fused, void* delta, cudaStream_t st) {
-    if (din < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    auto aligned = [](const void* p) {
-        return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
-    const bool vec = din % 4 == 0 && d % 4 == 0 && aligned(table) &&
-                     aligned(x) && aligned(w) && aligned(u);
-    const auto kernel =
-        gidx ? (vec ? memory_update_rows_kernel<true, true>
-                    : memory_update_rows_kernel<false, true>)
-             : (vec ? memory_update_rows_kernel<true, false>
-                    : memory_update_rows_kernel<false, false>);
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((m + GT_ROWS - 1) / GT_ROWS, (d + GT_COLS - 1) / GT_COLS);
-    kernel<<<grid, GT_THREADS, GT_SMEM, st>>>(
+    const auto vec_kernel = gidx ? memory_update_rows_kernel<true, true>
+                                 : memory_update_rows_kernel<true, false>;
+    const auto plain_kernel = gidx ? memory_update_rows_kernel<false, true>
+                                   : memory_update_rows_kernel<false, false>;
+    return gru_tile_launch(
+        vec_kernel, plain_kernel, x, din, table, d, w, u, m, st,
         static_cast<const float*>(table), n_rows, d,
         static_cast<const float*>(x), din,
         static_cast<const int32_t*>(gidx),
@@ -121,7 +111,6 @@ int launch_rows(const void* table, int64_t n_rows, int d, const void* x,
         static_cast<const float*>(scale), static_cast<const float*>(gamma),
         clip, innovation, m, static_cast<float*>(s_meas),
         static_cast<float*>(fused), static_cast<float*>(delta));
-    return (int)cudaGetLastError();
 }
 
 }  // namespace

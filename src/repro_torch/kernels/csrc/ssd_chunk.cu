@@ -13,9 +13,8 @@
 // widths (G = 8, L = 256, N = 256, P = 257) the score block alone is
 // 256 KB, more than a block's shared memory, and a block a group would
 // leave 124 of the 132 SMs idle. Here all four products run on the tensor
-// cores at fp32 grade (three TF32 mma.sync products a step, tf32x3.cuh,
-// the operands split by integer operations: tf32_split_int), over blocks
-// of two kinds:
+// cores at fp32 grade (three TF32 mma.sync products a step, tf32x3.cuh),
+// over blocks of two kinds:
 //  - a y block owns SSD_BM query rows and a slab of P columns. It first
 //    takes the carry-in (q * exp(lcum)) h0 into its accumulators (the rows
 //    of h0 streamed in SSD_KC-deep chunks), then walks the key tiles j0 <=
@@ -38,7 +37,8 @@
 // cp.async ring of 16-byte copies where q and k allow (N % 4 == 0), and
 // always for v and h0: each row is copied from the 16-byte boundary at or
 // before the slab's first column and read back shifted (P = 257 leaves no
-// row aligned); fixed tile widths, so no staging loop divides by a runtime
+// row aligned, and with L P or N P odd no group's base is either); fixed
+// tile widths, so no staging loop divides by a runtime
 // width. Every product is rounded as the plain version's before it is
 // split: the score, then its decay; q * exp(lcum); k * exp(ltot - lcum);
 // the sums run in another order. exp is expf (no --use_fast_math).
@@ -142,11 +142,13 @@ __device__ __forceinline__ void stage4(float* dst, int ld,
 
 // rows r0.. (NR of them), columns c0 .. c0 + ncl - 1 of a row-major (rows x
 // cols) matrix, any cols and c0, by 16-byte copies from each row's 16-byte
-// boundary at or before column c0: row r lands shifted right by sh[r] (0 to
-// 3; VEC false: 4-byte copies, no shift). Columns past cols and rows past
-// rows are zero; the shifted-in columns before c0 lie inside the matrix
-// (row r0 + r > 0 whenever its shift reaches back past column 0).
-// ld >= ncl + 4 rounded up to 4
+// boundary at or before column c0 (a boundary of the address: src, a
+// group's slice, need not be aligned itself): row r lands shifted right by
+// sh[r] (0 to 3; VEC false: 4-byte copies, no shift). Columns past cols and
+// rows past rows are zero; the shifted-in words before c0 lie inside the
+// tensor, whose base is 16-byte aligned (VEC) while c0 is a multiple of 8,
+// so a shift that reaches back past column 0 reads the previous row or
+// group. ld >= ncl + 4 rounded up to 4
 template <int NR, int NC, bool VEC>
 __device__ __forceinline__ void stage_rows(float* dst, int ld, int* sh,
                                            const float* __restrict__ src,
@@ -161,9 +163,13 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, int* sh,
     constexpr int W = NC / 4 + 1;
     constexpr int WARPS = SSD_THREADS / 32;
     const int lane = threadIdx.x & 31;
+    // an aligned address inside the tensor, named by the copies of no bytes
+    const float* any =
+        src - ((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
     for (int r = threadIdx.x >> 5; r < NR; r += WARPS) {
         const int64_t at = (int64_t)(r0 + r) * cols + c0;
-        const int shift = (int)(at & 3);
+        const int shift =
+            (int)((reinterpret_cast<uintptr_t>(src + at) >> 2) & 3);
         if (lane == 0) sh[r] = shift;
         const bool row_ok = r0 + r < rows;
         const float* s = src + at - shift;
@@ -173,7 +179,7 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, int* sh,
             if (4 * m >= ncl + shift) break;
             const int c = c0 - shift + 4 * m;   // column of the quad's first
             const int live = row_ok ? min(4, cols - c) : 0;
-            cp_async16(d + 4 * m, s + 4 * m, 4 * max(live, 0), src);
+            cp_async16(d + 4 * m, s + 4 * m, 4 * max(live, 0), any);
         }
     }
 }
@@ -186,7 +192,7 @@ __device__ __forceinline__ FragA load_frag_a_scaled(const float* as, int lda,
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const float* p = as + (r0 + g) * lda + k0 + t;
-    return frag_a<true>(__fmul_rn(p[0], s0), __fmul_rn(p[8 * lda], s8),
+    return frag_a(__fmul_rn(p[0], s0), __fmul_rn(p[8 * lda], s8),
                         __fmul_rn(p[4], s0), __fmul_rn(p[8 * lda + 4], s8));
 }
 
@@ -199,7 +205,7 @@ __device__ __forceinline__ FragA load_frag_a_kw(const float* kt, int ldt,
     const int g = lane >> 2, t = lane & 3;
     const float* p = kt + (j0 + t) * ldt + n0 + g;
     const float w0 = w[j0 + t], w4 = w[j0 + t + 4];
-    return frag_a<true>(__fmul_rn(p[0], w0), __fmul_rn(p[8], w0),
+    return frag_a(__fmul_rn(p[0], w0), __fmul_rn(p[8], w0),
                         __fmul_rn(p[4 * ldt], w4),
                         __fmul_rn(p[4 * ldt + 8], w4));
 }
@@ -215,7 +221,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[SSD_NT][4],
     const float* b4 = vb + (ks + t + 4) * SSD_LDV + sh[ks + t + 4] + col + g;
 #pragma unroll
     for (int i = 0; i < SSD_NT; ++i)
-        mma_3xtf32(acc[i], fa, frag_b<true>(b0[8 * i], b4[8 * i]));
+        mma_3xtf32(acc[i], fa, frag_b(b0[8 * i], b4[8 * i]));
 }
 
 // VQK: q and k by 16-byte copies (N % 4 == 0, aligned); VVH: v and h0 by
@@ -387,11 +393,11 @@ __global__ void __launch_bounds__(SSD_THREADS, 2) ssd_chunk_kernel(
 #pragma unroll
                 for (int kk = 0; kk < SSD_KS / 2; kk += 8) {
                     const int ks = half * (SSD_KS / 2) + kk;
-                    const FragA fa = load_frag_a<false, true>(
+                    const FragA fa = load_frag_a<false>(
                         qs, sh.ldq, rw, sub * SSD_KS + ks, 0);
 #pragma unroll
                     for (int t = 0; t < 2; ++t)
-                        mma_3xtf32(sacc[t], fa, load_frag_b_nmajor<true>(
+                        mma_3xtf32(sacc[t], fa, load_frag_b_nmajor(
                             sb, SSD_LDK, ks, wc * 16 + 8 * t));
                 }
                 continue;
@@ -430,7 +436,7 @@ __global__ void __launch_bounds__(SSD_THREADS, 2) ssd_chunk_kernel(
 #pragma unroll
             for (int kk = 0; kk < SSD_BK / 2; kk += 8) {
                 const int ks = half * (SSD_BK / 2) + kk;
-                mma_rows(acc, load_frag_a<false, true>(st, SSD_LDS, rw, ks, 0),
+                mma_rows(acc, load_frag_a<false>(st, SSD_LDS, rw, ks, 0),
                          sb + SSD_VOFF, shv, ks, colw);
             }
         }

@@ -42,32 +42,18 @@ struct Tf32x2 {
     uint32_t hi, lo;
 };
 
+// x = hi + lo, each rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest,
+// ties away from zero, on sign and magnitude), by integer operations: nvcc
+// emulates cvt.rna on sm_90 with an inf/NaN test and a select around
+// (bits + 0x1000) & ~0x1fff, and that sum alone is the same rounding for
+// every finite x. The tensor core reads only an operand's 19 high bits, so
+// hi and lo go to it unmasked and only the hi that x - hi subtracts is
+// masked: four instructions where cvt.rna takes eight. Infinities and NaNs
+// give the products cvt.rna's split gives (hi inf, lo NaN).
 __device__ __forceinline__ Tf32x2 tf32_split(float x) {
-    uint32_t hi, lo;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-    return {hi, lo};
-}
-
-// The same split by integer operations. nvcc emulates cvt.rna.tf32.f32 on
-// sm_90 with an inf/NaN test and a select around (bits + 0x1000) &
-// ~0x1fff; that sum alone is the same rounding (to nearest, ties away from
-// zero, on sign and magnitude) for every finite x, and the tensor core
-// reads only an operand's 19 high bits, so hi and lo go to it unmasked and
-// only the hi that x - hi subtracts is masked: four instructions where
-// cvt.rna takes eight. Infinities and NaNs give the products cvt.rna's
-// split gives (hi inf, lo NaN). ssd_chunk.cu splits this way (INT below);
-// gru_tile.cuh and embed_attn.cu keep cvt.rna's code.
-__device__ __forceinline__ Tf32x2 tf32_split_int(float x) {
     const uint32_t hi = __float_as_uint(x) + 0x1000u;
     const float rest = x - __uint_as_float(hi & 0xffffe000u);
     return {hi, __float_as_uint(rest) + 0x1000u};
-}
-
-template <bool INT>
-__device__ __forceinline__ Tf32x2 tf32_split_as(float x) {
-    return INT ? tf32_split_int(x) : tf32_split(x);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -96,14 +82,13 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
 
 // the A fragment of four split elements: (g, t), (g + 8, t), (g, t + 4),
 // (g + 8, t + 4) of the 16 x 8 tile
-template <bool INT = false>
 __device__ __forceinline__ FragA frag_a(float v0, float v1, float v2,
                                         float v3) {
     const float v[4] = {v0, v1, v2, v3};
     FragA f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const Tf32x2 s = tf32_split_as<INT>(v[i]);
+        const Tf32x2 s = tf32_split(v[i]);
         f.hi[i] = s.hi;
         f.lo[i] = s.lo;
     }
@@ -111,16 +96,15 @@ __device__ __forceinline__ FragA frag_a(float v0, float v1, float v2,
 }
 
 // A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a row-major
-// shared tile (row stride lda); with MASK, columns at or past kd read as 0.
-// INT: split by tf32_split_int (the loaders below likewise)
-template <bool MASK = true, bool INT = false>
+// shared tile (row stride lda); with MASK, columns at or past kd read as 0
+template <bool MASK = true>
 __device__ __forceinline__ FragA load_frag_a(const float* as, int lda, int r0,
                                              int k0, int kd) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const float* p = as + (r0 + g) * lda + k0 + t;
     const bool lo_ok = !MASK || k0 + t < kd, hi_ok = !MASK || k0 + t + 4 < kd;
-    return frag_a<INT>(lo_ok ? p[0] : 0.0f, lo_ok ? p[8 * lda] : 0.0f,
+    return frag_a(lo_ok ? p[0] : 0.0f, lo_ok ? p[8 * lda] : 0.0f,
                        hi_ok ? p[4] : 0.0f, hi_ok ? p[8 * lda + 4] : 0.0f);
 }
 
@@ -135,32 +119,29 @@ __device__ __forceinline__ FragA load_frag_a_rows(const float* as, int off0,
 }
 
 // the B fragment of two split elements: depth rows k0 + t and k0 + t + 4
-template <bool INT = false>
 __device__ __forceinline__ FragB frag_b(float v0, float v4) {
-    const Tf32x2 s0 = tf32_split_as<INT>(v0);
-    const Tf32x2 s1 = tf32_split_as<INT>(v4);
+    const Tf32x2 s0 = tf32_split(v0);
+    const Tf32x2 s1 = tf32_split(v4);
     return {{s0.hi, s1.hi}, {s0.lo, s1.lo}};
 }
 
 // B fragment of depth rows k0 .. k0 + 7, columns n0 .. n0 + 7 of a k-major
 // shared tile (row stride ldb)
-template <bool INT = false>
 __device__ __forceinline__ FragB load_frag_b(const float* bs, int ldb, int k0,
                                              int n0) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const float* p = bs + (k0 + t) * ldb + n0 + g;
-    return frag_b<INT>(p[0], p[4 * ldb]);
+    return frag_b(p[0], p[4 * ldb]);
 }
 
 // the same fragment from an n-major shared tile (row stride ldn, 4 mod 8)
-template <bool INT = false>
 __device__ __forceinline__ FragB load_frag_b_nmajor(const float* bs, int ldn,
                                                     int k0, int n0) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const float* p = bs + (n0 + g) * ldn + k0 + t;
-    return frag_b<INT>(p[0], p[4]);
+    return frag_b(p[0], p[4]);
 }
 
 // dst <- *src when ok, else 0 (src is then not read; `any` is a valid

@@ -4,8 +4,9 @@ only on the card, held on the CPU.
 
 Both kernels run their matrix products on the tensor cores, whose fp32
 operands are TF32 (10 mantissa bits). Each operand x is split into
-hi = tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`: round to nearest,
-ties away from zero), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi,
+hi = tf32(x) and lo = tf32(x - hi) (the rounding of `cvt.rna.tf32.f32`:
+to nearest, ties away from zero, which `tf32x3.cuh` reaches by integer
+operations), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi,
 each 8-deep step accumulated in fp32 (the `mma.sync` m16n8k8 steps).
 `_mm3` repeats that rounding in plain PyTorch (test code: nothing on the
 port's path calls it), `_gru` the cell's gate epilogue on its accumulators
@@ -44,8 +45,9 @@ SLOT_GROUP = 4      # valid slots a group in embed_attn's online softmax
 
 
 def _tf32(x):
-    """cvt.rna.tf32.f32: the 13 low mantissa bits rounded off, ties away
-    from zero (on the bit pattern, sign and magnitude)."""
+    """cvt.rna.tf32.f32's rounding, as `tf32x3.cuh::tf32_split` forms it:
+    the 13 low mantissa bits rounded off, ties away from zero (on the bit
+    pattern, sign and magnitude)."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 

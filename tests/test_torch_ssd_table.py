@@ -4,8 +4,8 @@ tile of `kernels/csrc/gru_tile.cuh`), which run only on the card, held on
 the CPU.
 
 Both kernels run their matrix products on the tensor cores at fp32 grade:
-each operand split into hi = tf32(x) and lo = tf32(x - hi) by
-`cvt.rna.tf32.f32`, three TF32 products a step, each 8-deep step
+each operand split into hi = tf32(x) and lo = tf32(x - hi) (rounded as
+`cvt.rna.tf32.f32` rounds), three TF32 products a step, each 8-deep step
 accumulated in fp32 (`_mm3` of `test_torch_gru_embed.py`). `_ssd` repeats
 `ssd_chunk`'s order in plain PyTorch (test code: nothing on the port's
 path calls it): the carry-in (q * exp(lcum)) h0 first, then for each
@@ -132,12 +132,14 @@ def _check(got, wants, tol, exact=()):
 
 # ssd_chunk: chip_smoke.py's edge shapes (G, L, N, P, lcum step scale):
 # L = 1, ragged L, the xLSTM widths at G = 8 and 1, a large negative lcum,
-# P = 400 (three slabs), N = 33, L = 64 with P = 8, L = 65 with P = 264
+# P = 400 (three slabs), N = 33, L = 64 with P = 8, L = 65 with P = 264,
+# G = 3 with L P and N P odd (later groups off 16-byte boundaries)
 SSD_EDGE = [(1, 1, 8, 9, 0.05), (3, 100, 16, 17, 0.05),
             (8, 256, 256, 257, 0.05), (2, 300, 64, 65, 0.05),
             (2, 256, 256, 257, 4.0), (1, 40, 33, 400, 0.5),
             (2, 64, 64, 8, 0.05), (1, 65, 40, 264, 0.05),
-            (1, 256, 256, 257, 0.05)]
+            (1, 256, 256, 257, 0.05), (3, 3, 33, 9, 0.05),
+            (3, 51, 64, 257, 0.05)]
 
 
 def _ssd_inputs(case):
