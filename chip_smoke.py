@@ -11,8 +11,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ptxas's registers, spills and shared memory for each instantiation of
    the bf16 flash_attn kernel, whose SASS must hold wgmma (HGMMA) and TMA
    loads (UTMALDG), and of gru_cell, embed_attn, memory_update (the table
-   kernel and the dense memory_update) and ssd_chunk, whose SASS must hold
-   mma.sync (HMMA: their 3xTF32 products).
+   kernel and the dense memory_update), ssd_chunk and link_score, whose
+   SASS must hold mma.sync (HMMA: their 3xTF32 products).
 3. edge: each CUDA kernel against its plain PyTorch version at edge shapes
    (M=1, ragged tiles, a node group across a block edge, all-masked rows,
    large time gaps, D % 4 != 0, a misaligned start, K = 1, the K and E
@@ -30,7 +30,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of v and h0 off 16-byte boundaries (L P and N P odd); for the table kernel
    M = 2,048 at D = Din = 128 with a hot node across a 64-row tile edge
    and masked rows on tiles' first and last rows, M = 65, Din = 20 with
-   D = 12 (its 4-byte copies) across tiles).
+   D = 12 (its 4-byte copies) across tiles; for link_score D = 21 (its
+   4-byte copies), B = 1 with h_items the engine's h[B:] view 84 bytes
+   into its buffer, I at its 80- and 160-item blocks +- 1 and at the
+   switch between them, B = 17 and 1,024 at I = 20,000, D = 128, and
+   D = 172).
 4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk. The same replay then runs
@@ -281,14 +285,15 @@ def work(name, args, kw=None):
     uses (valid gathers, selected writes, valid attention slots or pairs).
     fp32 matrix products that run on the tensor cores (gru_cell's,
     memory_update_table's and memory_update's gate products, ssd_chunk's
-    four, and embed_attn's per-row ones) count three TF32 products each at
-    the TF32 peak: the least tensor-core work that keeps fp32 grade (one
-    rounding misses TOL); `fp32_flops` keeps the count of the first three
-    at the fp32 peak. embed_attn counts the form its kernel takes at every
-    shape, the fold (q into Wk and the softmax's weighted sum into Wv, per
-    row with a valid slot; 2 H c multiply-adds and the time encoding per
-    valid slot); `direct_work` keeps the count of the form before it (K/V
-    projected per slot, the table part once per distinct row)."""
+    four, embed_attn's per-row ones and link_score's two factors) count
+    three TF32 products each at the TF32 peak: the least tensor-core work
+    that keeps fp32 grade (one rounding misses TOL); `fp32_flops` keeps
+    the count of the first three and link_score at the fp32 peak.
+    embed_attn counts the form its kernel takes at every shape, the fold
+    (q into Wk and the softmax's weighted sum into Wv, per row with a valid
+    slot; 2 H c multiply-adds and the time encoding per valid slot);
+    `direct_work` keeps the count of the form before it (K/V projected per
+    slot, the table part once per distinct row)."""
     kw = kw or {}
     f = 4
     if name == "flash_attn":
@@ -349,12 +354,15 @@ def work(name, args, kw=None):
             PEAK_TF32: 3 * live * 2 * e * (ds + 2 * c),
             PEAK_FP32: nv * (4 * heads * c + 2 * tw.shape[0] + 4 * heads)}
     if name == "link_score":
+        # the factors (B + I rows x D x D) on the tensor cores; the pair
+        # pass (the add of the factors and b1, the max, the product with
+        # w2 and its sum: 5 a pair-depth element) on the fp32 units
         h_src, h_items, w1, b1, w2, _ = args
         nb, d = h_src.shape
         ni = h_items.shape[0]
         nbytes = ((nb + ni) * d + w1.numel() + 2 * d + 1 + nb * ni) * f
-        flops = 2 * (nb + ni) * d * d + 5 * nb * ni * d
-        return nbytes, flops
+        return nbytes, {PEAK_TF32: 3 * 2 * (nb + ni) * d * d,
+                        PEAK_FP32: 5 * nb * ni * d}
     if name == "gru_cell":
         x, h, w, u, b = args
         m, din = x.shape
@@ -395,9 +403,15 @@ def work(name, args, kw=None):
 
 
 def fp32_flops(name, args):
-    """The operations of memory_update_table, memory_update and ssd_chunk
-    with every one at the fp32 peak (the bound `work` gave before their
-    products moved to the tensor cores); their bytes are `work`'s."""
+    """The operations of memory_update_table, memory_update, ssd_chunk and
+    link_score with every one at the fp32 peak (the bound `work` gave
+    before their products moved to the tensor cores); their bytes are
+    `work`'s."""
+    if name == "link_score":
+        h_src, h_items = args[:2]
+        nb, d = h_src.shape
+        ni = h_items.shape[0]
+        return 2 * (nb + ni) * d * d + 5 * nb * ni * d
     if name == "ssd_chunk":
         q, _, v, _, _ = args
         g, ll, n = q.shape
@@ -546,10 +560,11 @@ def check_kernel(name, args, kw, label):
 # the sources whose SASS must hold tensor-core products: HGMMA (wgmma) and
 # TMA loads (UTMALDG) for the bf16 flash_attn, HMMA (mma.sync) for the
 # 3xTF32 products of gru_cell, embed_attn, memory_update (the table kernel
-# and the dense memory_update) and ssd_chunk
+# and the dense memory_update), ssd_chunk and link_score (its factors)
 TENSOR_CORE_SASS = {"flash_attn_wgmma": ("HGMMA", "UTMALDG"),
                     "gru_cell": ("HMMA",), "embed_attn": ("HMMA",),
-                    "memory_update": ("HMMA",), "ssd_chunk": ("HMMA",)}
+                    "memory_update": ("HMMA",), "ssd_chunk": ("HMMA",),
+                    "link_score": ("HMMA",)}
 
 
 def check_tensor_core_build(out_dir):
@@ -644,10 +659,33 @@ def edge_cases(dev):
         cases.append(("embed_attn", args, dict(n_heads=heads),
                       f"R={r} K={kk} d={din} E={e} heads={heads} dt~{dts:g} "
                       f"hot={hot}"))
-    for b, i, d in [(1, 37, 16), (5, 130, 100), (33, 20000, 128)]:
-        args = [t(f(b, d)), t(f(i, d)), t(f(2 * d, d, sc=d ** -0.5)),
-                t(f(d, sc=0.1)), t(f(d, 1, sc=d ** -0.5)), t(f(1))]
-        cases.append(("link_score", args, {}, f"B={b} I={i} D={d}"))
+    # link_score: B = 1, ragged tiles, 33 sources (three source tiles);
+    # D = 21 (rows off 16 bytes and the depth off the 8-deep mma step);
+    # B = 1 at D = 21 with h_items = h[B:] as the engine slices it (84
+    # bytes into its buffer); I one under and one over the 80-item block
+    # and (I = 20,000 is 125 of them) the 160-item one, there with D = 21
+    # too; I at the switch between the two on a 132-SM card; B = 17 and
+    # 1,024 at the top-k shape (more source tiles, then several a block);
+    # D = 172 (two column passes) with each block shape
+    for b, i, d, view in [(1, 37, 16, False), (5, 130, 100, False),
+                          (33, 20000, 128, False), (5, 130, 21, False),
+                          (1, 37, 21, True), (16, 79, 128, False),
+                          (16, 81, 128, False), (16, 19999, 128, False),
+                          (16, 20001, 21, False), (16, 10560, 128, False),
+                          (16, 10561, 128, False), (17, 20000, 128, False),
+                          (1024, 20000, 128, False), (16, 300, 172, False),
+                          (8, 20001, 172, False)]:
+        if view:
+            h = t(f(b + i, d))
+            hs, hi = h[:b], h[b:]
+        else:
+            hs, hi = t(f(b, d)), t(f(i, d))
+        args = [hs, hi, t(f(2 * d, d, sc=d ** -0.5)), t(f(d, sc=0.1)),
+                t(f(d, 1, sc=d ** -0.5)), t(f(1))]
+        cases.append(("link_score", args, {},
+                      f"B={b} I={i} D={d}"
+                      + (f" h_items at +{hi.storage_offset() * 4} bytes"
+                         if view else "")))
     # gru_cell: M = 1, ragged tiles, the CONFIG and PRODUCTION widths, M
     # at the kernel's 64-row tile +- 1, D = 100 (not a multiple of its
     # 16-column tile) with Din = 172, widths off its 16-byte copies
@@ -1641,7 +1679,8 @@ def kernel_row(name, spec, phase, inputs, counts):
     if len(parts) > 1:
         # a call of several kernels (the table kernel's two phases): each
         row["device_ms_by_kernel"] = parts
-    if name in ("memory_update_table", "memory_update", "ssd_chunk"):
+    if name in ("memory_update_table", "memory_update", "ssd_chunk",
+                "link_score"):
         # the bound with every operation on the fp32 units (fp32_flops)
         nbytes = work(name, a, kw)[0]
         row["fp32_bound_ms"] = max(nbytes / PEAK_BYTES,

@@ -43,7 +43,7 @@ SIGNATURES = {
                                   _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "repro_embed_attn": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P,
                          _P, _P, _I, _I, _P, _P],
-    "repro_link_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "repro_link_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "repro_gru_cell": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P],
     "repro_pres_predict": [_P, _P, _P, _I64, _I, _F, _P, _P],
     "repro_neighbor_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
