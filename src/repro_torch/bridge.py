@@ -2,10 +2,12 @@
 
 The trees are nested dicts of numpy arrays in the JAX package's layout:
 parameters `time/{w,b}`, `msg/{w1,b1,w2,b2}`, `mem/{w,u,b}`,
-`emb/l<i>/{wq,wk,wv,wo}`, `dec/{w1,b1,w2,b2}`, `node_cls/...`,
-`pres/gamma_logit` (weights (in, out), used as `x @ W`, never transposed);
-state `memory/{mem,last_update}`, `neighbors/{nbr,t,ptr}`,
-`pres/{n,xi,psi}` and, for APAN, `mailbox/{msg,t,ptr}`; the pipelined
+`emb/l<i>/{wq,wk,wv,wo}` (JODIE: `emb/l0/{w_proj,w_out}`, `emb/l<i>/w`),
+`dec/{w1,b1,w2,b2}`, `node_cls/...`, `pres/gamma_logit` (weights (in,
+out), used as `x @ W`, never transposed); state `memory/{mem,last_update}`,
+`neighbors/{nbr,t,ptr}`, `pres/{n,xi,psi}` (a row per node, or per hash
+bucket with `pres_buckets`; the port adds its dump row after either) and,
+for APAN, `mailbox/{msg,t,ptr}`; the pipelined
 schedule's snapshot `{read_mem, read_last_update, pending, tick}`; and
 the model zoo's parameter trees (`embed/table`, `final_norm/scale`,
 `blocks/u{i}/b{j}/...` or, stacked, `blocks/b{j}/...` with a leading

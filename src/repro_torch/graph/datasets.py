@@ -3,7 +3,8 @@
 
 `generate` builds the in-RAM JODIE-style streams of `SPECS`; `stream_chunk`
 is the stateless hashed power-law generator behind `STREAM_SPECS`, whose
-events [lo, hi) depend on nothing but (spec, seed, lo, hi)."""
+events [lo, hi) depend on nothing but (spec, seed, lo, hi); `node_labels`
+the labels of Table 2's node classification."""
 from __future__ import annotations
 
 import dataclasses
@@ -162,3 +163,15 @@ def stream_events(spec: StreamSpec, seed: int, n_events: int) -> EventStream:
     """The first `n_events` of `spec` as an in-RAM EventStream."""
     src, dst, t, feat = stream_chunk(spec, seed, 0, n_events)
     return EventStream(src, dst, t, feat, spec.num_nodes)
+
+
+def node_labels(stream: EventStream, spec: SyntheticSpec, seed: int = 0):
+    """Dynamic binary labels of the events' source nodes for the
+    node-classification task (paper Table 2): the source id's parity, 5 %
+    of them flipped, (len(stream),) int32. `spec` is unused, as in the
+    reference."""
+    rng = np.random.default_rng(seed + 1)
+    flip = rng.random(len(stream)) < 0.05
+    lab = (stream.src % 2).astype(np.int32)
+    lab[flip] = 1 - lab[flip]
+    return lab

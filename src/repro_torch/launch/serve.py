@@ -7,8 +7,11 @@ reporting p50/p99 ingest and query latency, events/sec and the online AP:
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset wiki-small \
         --model tgn --pres --use-kernels
 
-`--model apan` serves APAN (mailbox attention through `neighbor_attn`);
-`--model jodie` is not ported and raises. `--zoo <arch> --steps N` runs
+`--model apan` serves APAN (mailbox attention through `neighbor_attn`),
+`--model jodie` JODIE (its time projection; the memory stage and top-k
+run the kernels). Without `--use-kernels` every call takes the
+reference's plain route and launches no kernel, as the JAX CLI runs
+without Pallas kernels. `--zoo <arch> --steps N` runs
 the model zoo's greedy decode loop instead (a ported arch's reduced
 config, batch 2, a 128-slot cache), as the JAX CLI does; decode runs no
 kernel (the zoo's kernels run in the prefill, `Model.forward`):
@@ -144,7 +147,8 @@ def main(argv=None):
     ap.add_argument("--event-store", default=None,
                     help="not ported yet (raises)")
     ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
-                    help="tgn or apan ('jodie' is not ported)")
+                    help="the embedding: TGN's attention, JODIE's time "
+                         "projection or APAN's mailbox attention")
     ap.add_argument("--pres", action="store_true")
     ap.add_argument("--n-layers", type=int, default=1,
                     help="embedding depth (hops for tgn)")
@@ -169,7 +173,7 @@ def main(argv=None):
                     help="also demo recommend_topk with this k")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route ingest, query and top-k through the CUDA "
-                         "kernels (required by this port)")
+                         "kernels; without it the plain route, no kernel")
     ap.add_argument("--kernels-mode", default="auto",
                     choices=["auto", "compiled", "interpret", "oracle"],
                     help="auto: kernels on CUDA, plain versions on the CPU; "

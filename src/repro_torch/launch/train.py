@@ -1,9 +1,12 @@
 """End-to-end MDGNN training entry point (counterpart of
 `repro/launch/train.py`, the paper's experiment loop): Alg. 2 with
-`--pres`, Alg. 1 without; `--model apan` for APAN's mailbox embedding,
-`--no-dedup-embed` for TGN's dense embedding expansion, and
-`--pipeline-depth N` (N >= 1) for the staleness-aware pipelined schedule,
-whose batches are carved on a prefetch thread.
+`--pres`, Alg. 1 without; `--model jodie` for JODIE's time projection,
+`--model apan` for APAN's mailbox embedding, `--no-dedup-embed` for TGN's
+dense embedding expansion, and `--pipeline-depth N` (N >= 1) for the
+staleness-aware pipelined schedule, whose batches are carved on a prefetch
+thread. `--use-kernels` runs the CUDA kernels; without it the step takes
+the reference's plain route, which launches none, as the JAX CLI runs
+without Pallas kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
         --model tgn --pres --use-kernels
@@ -57,7 +60,8 @@ def main(argv=None):
     ap.add_argument("--event-store", default=None,
                     help="not ported yet (raises)")
     ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
-                    help="tgn or apan ('jodie' is not ported)")
+                    help="the embedding: TGN's attention, JODIE's time "
+                         "projection or APAN's mailbox attention")
     ap.add_argument("--pres", action="store_true",
                     help="Alg. 2 (PRES); without it Alg. 1")
     ap.add_argument("--beta", type=float, default=0.1)
@@ -85,7 +89,7 @@ def main(argv=None):
                          "attention (embed_attn, or neighbor_attn for APAN "
                          "and --no-dedup-embed) and the pipeline's "
                          "staleness fill (pres_predict) through the CUDA "
-                         "kernels (required by this port)")
+                         "kernels; without it the plain route, no kernel")
     ap.add_argument("--kernels-mode", default="auto",
                     choices=["auto", "compiled", "interpret", "oracle"],
                     help="auto: kernels on CUDA, plain versions on the CPU; "
@@ -150,8 +154,9 @@ def main(argv=None):
         batches = train_s.temporal_batches(args.batch_size, device)
         make_batches = lambda: batches
     val_batches = val_s.temporal_batches(args.batch_size, device)
-    print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
-          f"default={kops.resolve_mode('auto', device)}")
+    if cfg.use_kernels:
+        print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
+              f"default={kops.resolve_mode('auto', device)}")
     print(f"[train] {args.model}{'-PRES' if args.pres else ''} on "
           f"{args.dataset}: {len(train_s)} events, "
           f"K={train_s.num_batches(args.batch_size)} batches of "

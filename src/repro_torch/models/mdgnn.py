@@ -1,13 +1,12 @@
-"""MDGNN engine, TGN and APAN (counterpart of `repro/models/mdgnn.py`):
-configuration, parameters, runtime state, the MESSAGE stage and its
-per-occurrence bookkeeping, the batch-parallel memory update, APAN's
-mailbox, the embedding entry point and the link decoder.
+"""MDGNN engine, TGN, JODIE and APAN (counterpart of
+`repro/models/mdgnn.py`): configuration, parameters, runtime state, the
+MESSAGE stage and its per-occurrence bookkeeping, the batch-parallel memory
+update and its sequential oracle, APAN's mailbox, the embedding entry point
+and the link and node decoders.
 
 Only the configurations the ported slices implement are accepted
-(`check_supported`: TGN or APAN with the GRU or rnn cell and the kernels,
-PRES on or off with either Eq. 7 scale, the last or mean aggregator,
-either embedding path, any pipeline depth); every other option raises
-NotImplementedError naming the ROADMAP item that ports it."""
+(`check_supported`); every other option raises NotImplementedError naming
+the ROADMAP item that ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -63,34 +62,44 @@ class MDGNNConfig:
 # field -> (the values the ported slices implement, the ROADMAP item
 # porting others)
 _SUPPORTED = {
-    "variant": (("tgn", "apan"), "Queue 1 item 11 (JODIE's projection "
-                                 "embedding)"),
-    "memory_cell": (("gru", "rnn"), "Queue 1 item 11"),
-    "aggregator": (("last", "mean"), "Queue 1 item 11"),
-    "pres_scale": (("count", "time"), "Queue 1 item 11"),
-    "anchor_fraction": ((1.0,), "Queue 1 item 11 (the anchor mask)"),
-    "pres_buckets": ((None,), "Queue 1 item 11 (pres_buckets)"),
-    "mem_dtype": (("float32",), "Queue 1 item 11 (mem_dtype='bfloat16')"),
-    "use_kernels": ((True,), "Queue 1 item 11 (use_kernels=False routing)"),
+    "mem_dtype": (("float32",), "Queue 1 item 18 (mem_dtype='bfloat16')"),
     "scan_chunk": ((1,), "Queue 1 item 15 (scan macro-batches)"),
     "event_store": ((None,), "Queue 1 item 17 (event store)"),
     "n_shards": ((1,), "Queue 1 item 18 (memory parallelism)"),
     "obs_metrics": ((False,), "Queue 1 item 14 (telemetry)"),
 }
+# field -> every value the reference defines
+_CHOICES = {
+    "variant": ("tgn", "jodie", "apan"),
+    "memory_cell": ("gru", "rnn"),
+    "aggregator": ("last", "mean"),
+    "pres_scale": ("count", "time"),
+    "delta_mode": ("transition", "innovation"),
+}
 
 
 def check_supported(cfg: MDGNNConfig) -> None:
-    """Raise NotImplementedError for any option outside the ported slices."""
+    """Raise NotImplementedError for any option outside the ported slices,
+    and ValueError for a value the reference does not define.
+
+    Every `pres_buckets` and `use_kernels` value is accepted (False: the
+    plain route, which launches no kernel). So is every
+    `anchor_fraction`, which, as in the JAX engine, nothing reads: the
+    anchor mask is `pres.make_anchor_mask`, passed to
+    `pres.update_trackers` by its caller."""
     for field, (values, item) in _SUPPORTED.items():
         got = getattr(cfg, field)
         if got not in values:
-            shown = values[0] if len(values) == 1 else values
             raise NotImplementedError(
-                f"repro_torch implements {field}={shown!r} only, got "
+                f"repro_torch implements {field}={values[0]!r} only, got "
                 f"{got!r}; ROADMAP {item} ports the rest")
-    if cfg.delta_mode not in ("transition", "innovation"):
-        raise ValueError(f"unknown delta_mode {cfg.delta_mode!r}")
-    if cfg.n_layers < 1 or cfg.d_embed % cfg.n_heads:
+    for field, values in _CHOICES.items():
+        if getattr(cfg, field) not in values:
+            raise ValueError(f"unknown {field} {getattr(cfg, field)!r}; "
+                             f"one of {values}")
+    # JODIE has no attention heads (jodie_init checks the depth only)
+    heads_ok = cfg.variant == "jodie" or cfg.d_embed % cfg.n_heads == 0
+    if cfg.n_layers < 1 or not heads_ok:
         raise ValueError(f"need n_layers >= 1 and d_embed divisible by "
                          f"n_heads, got {cfg.n_layers}, {cfg.d_embed}, "
                          f"{cfg.n_heads}")
@@ -116,6 +125,13 @@ def param_shapes(cfg: MDGNNConfig) -> dict:
         "node_cls": {"w1": (e, e), "b1": (e,), "w2": (e, 1), "b2": (1,)},
         "pres": {"gamma_logit": ()},
     }
+    if cfg.variant == "jodie":
+        # jodie_init: the time projection, then d_embed-wide layers
+        shapes["emb"]["l0"] = {"w_proj": (1, cfg.d_mem),
+                               "w_out": (cfg.d_mem, e)}
+        for l in range(1, cfg.n_layers):
+            shapes["emb"][f"l{l}"] = {"w": (e, e)}
+        return shapes
     # keys and values: TGN's from [neighbour row, time encoding] (tgn_init),
     # APAN's from the mailbox messages (apan_init)
     for l in range(cfg.n_layers):
@@ -157,14 +173,16 @@ def init_params(cfg: MDGNNConfig, generator: torch.Generator | None = None,
 def init_state(cfg: MDGNNConfig, device=None) -> dict:
     """Zero memory, empty neighbour rings and PRES trackers on `device`,
     and for APAN an empty mailbox (`msg` (N + 1, mailbox_size, d_msg), `t`
-    (N + 1, mailbox_size), `ptr` (N + 1,)). Rings, trackers and mailbox
-    carry a trailing dump row (see core/)."""
+    (N + 1, mailbox_size), `ptr` (N + 1,)). The trackers have a row per
+    node, or per hash bucket with `pres_buckets`. Rings, trackers and
+    mailbox carry a trailing dump row (see core/)."""
     dev = resolve_device(device)
     state = {
         "memory": MemoryState.init(cfg.n_nodes, cfg.d_mem, dev),
         "neighbors": batching.init_neighbors(cfg.n_nodes, cfg.n_neighbors,
                                              dev),
-        "pres": PresState.init(cfg.n_nodes, cfg.d_mem, dev),
+        "pres": PresState.init(cfg.pres_buckets or cfg.n_nodes, cfg.d_mem,
+                               dev),
     }
     if cfg.variant == "apan":
         n, km = cfg.n_nodes + 1, cfg.mailbox_size
@@ -247,13 +265,16 @@ def memory_inputs(params, cfg: MDGNNConfig, mem: MemoryState,
 
 
 def memory_cell(cfg: MDGNNConfig, p, x, h):
-    """The configured memory cell on rows x (M, d_msg), h (M, d_mem): the
-    `gru_cell` kernel for the GRU, the plain `modules.rnn_cell` for the rnn
-    cell (the JAX package has no kernel for it)."""
-    if cfg.memory_cell == "gru":
+    """The configured memory cell on rows x (M, d_msg), h (M, d_mem): with
+    cfg.use_kernels the `gru_cell` kernel for the GRU, else the plain
+    `modules.gru_cell`; the plain `modules.rnn_cell` for the rnn cell (the
+    JAX package has no kernel for it)."""
+    if cfg.memory_cell == "rnn":
+        return modules.rnn_cell(p, x, h)
+    if cfg.use_kernels:
         return kops.gru_cell(x, h, p["w"], p["u"], p["b"],
                              mode=cfg.kernels_mode)
-    return modules.rnn_cell(p, x, h)
+    return modules.gru_cell(p, x, h)
 
 
 def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
@@ -288,6 +309,31 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
     return mem, info
 
 
+def sequential_memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
+                             batch: EventBatch) -> MemoryState:
+    """The sequential oracle (Fig. 2(b), middle row): the batch's events
+    folded strictly one at a time through the plain memory cell, so no
+    event reads a row its batch already changed without seeing that
+    change. Returns a new MemoryState; `mem` is left as it was. A masked
+    event leaves its rows and times alone. A loop over the b events, as
+    JAX's lax.scan: an oracle, not a fast path."""
+    cell = modules.gru_cell if cfg.memory_cell == "gru" else \
+        modules.rnn_cell
+    m, lu = mem.mem.clone(), mem.last_update.clone()
+    for i in range(batch.src.shape[0]):
+        pair = torch.stack([batch.src[i], batch.dst[i]])
+        other = torch.stack([batch.dst[i], batch.src[i]])
+        s_self, s_other = m[pair], m[other]
+        t_enc = modules.time_encode(params["time"], batch.t[i] - lu[pair])
+        msgs = modules.message(params["msg"], s_self, s_other,
+                               batch.feat[i].expand(2, -1), t_enc)
+        new_rows = cell(params["mem"], msgs, s_self)
+        upd = batch.mask[i].to(torch.float32)
+        m[pair] = upd * new_rows + (1 - upd) * s_self
+        lu[pair] = torch.where(batch.mask[i], batch.t[i], lu[pair])
+    return MemoryState(mem=m, last_update=lu)
+
+
 # ---------------------------------------------------------------------------
 # EMBEDDING and decoder
 # ---------------------------------------------------------------------------
@@ -295,7 +341,8 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
 
 def embed_nodes(params, cfg: MDGNNConfig, state, nodes, t_query):
     """Dynamic embeddings h_i(t) of the variant's EMBEDDING module (TGN
-    attention over cfg.n_layers hops, or APAN's mailbox attention)."""
+    attention over cfg.n_layers hops, JODIE's time projection, or APAN's
+    mailbox attention)."""
     return embeddings.VARIANT_EMBEDDINGS[cfg.variant](params, cfg, state,
                                                       nodes, t_query)
 
@@ -315,3 +362,9 @@ def link_logits(params, h_src, h_dst):
     x = torch.cat([h_src, h_dst], dim=-1)
     h = torch.relu(x @ params["dec"]["w1"] + params["dec"]["b1"])
     return (h @ params["dec"]["w2"] + params["dec"]["b2"])[..., 0]
+
+
+def node_logits(params, h):
+    """Node-classification logits (Table 2) of embeddings h (M, d_embed)."""
+    hh = torch.relu(h @ params["node_cls"]["w1"] + params["node_cls"]["b1"])
+    return (hh @ params["node_cls"]["w2"] + params["node_cls"]["b2"])[..., 0]

@@ -12,9 +12,14 @@ points:
   tensors (the JAX engine donates its state buffers for the same effect);
 * `query(srcs, dsts, ts)` scores candidate pairs through the variant's
   embedding (TGN: `embed_attn`, or `neighbor_attn` on the dense path;
-  APAN: `neighbor_attn`) and the link decoder;
+  JODIE: its time projection, no kernel; APAN: `neighbor_attn`) and the
+  link decoder;
 * `recommend_topk(srcs, t, k)` scores every source against the full item
   range through the `link_score` kernel and returns the top-k items.
+
+The kernels named run with cfg.use_kernels; without it every call takes
+the reference's plain route (the plain cell and filter, the plain
+attention, `ref.link_score_ref`) and launches no kernel.
 
 Each runs inside a `torch.profiler.record_function` range (serve_ingest,
 serve_query, serve_topk). The engine runs on CUDA unless `device="cpu"` is
@@ -27,6 +32,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph.events import EventBatch
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.serve.batcher import MicroBatcher
@@ -93,9 +99,13 @@ class ServeEngine:
                                   torch.cat([t, t_item]))
             h_src, h_items = h[:src.shape[0]], h[src.shape[0]:]
             dec = self.params["dec"]
-            scores = kops.link_score(h_src, h_items, dec["w1"], dec["b1"],
-                                     dec["w2"], dec["b2"],
-                                     mode=self.cfg.kernels_mode)
+            if self.cfg.use_kernels:
+                scores = kops.link_score(h_src, h_items, dec["w1"],
+                                         dec["b1"], dec["w2"], dec["b2"],
+                                         mode=self.cfg.kernels_mode)
+            else:
+                scores = ref.link_score_ref(h_src, h_items, dec["w1"],
+                                            dec["b1"], dec["w2"], dec["b2"])
             vals, idx = torch.topk(scores, k, dim=1)
             return vals, idx + lo
 

@@ -5,17 +5,18 @@ With PRES the memory measurement is fused with the GMM prediction and the
 coherence smoothing term (Eq. 10) joins the loss. The memory maintenance
 here (`memory_and_pres`, `maintain_state`) is shared with serving.
 
-Kernel routing (cfg.use_kernels, required by mdgnn.check_supported):
-PRES with the GRU cell runs the whole memory step as one
-`memory_update_table` call; otherwise the memory cell runs on its own
-(the `gru_cell` kernel, or the plain rnn cell) and, with PRES, the
-`pres_filter` kernel fuses its rows with the prediction; every layer of the
-deduplicated TGN embedding is `embed_attn`, and the attention of the dense
-TGN path and of APAN is `neighbor_attn`. Each is differentiable
-(kernels/autodiff.py): the kernel forward, a backward through its plain
-version. The pipelined schedule (`pipeline_depth >= 1`) is
-`train/pipeline.py`; it shares the memory stage and the state maintenance
-here.
+Kernel routing (cfg.use_kernels): PRES with the GRU cell runs the whole
+memory step as one `memory_update_table` call; otherwise the memory cell
+runs on its own (the `gru_cell` kernel, or the plain rnn cell) and, with
+PRES, the `pres_filter` kernel fuses its rows with the prediction; every
+layer of the deduplicated TGN embedding is `embed_attn`, and the attention
+of the dense TGN path and of APAN is `neighbor_attn`. Each is
+differentiable (kernels/autodiff.py): the kernel forward, a backward
+through its plain version. Without cfg.use_kernels the step is the
+reference's plain route, which launches no kernel: the plain cell, then
+`pres.predict` and `pres.correct`, the plain attention. The pipelined
+schedule (`pipeline_depth >= 1`) is `train/pipeline.py`; it shares the
+memory stage and the state maintenance here.
 
 State updates are IN PLACE on the state dict's tensors where the JAX
 engine donates and aliases its buffers, and the state is detached after
@@ -46,28 +47,41 @@ def _pres_scale_and_ids(cfg: MDGNNConfig, info):
     """Eq. 7 extrapolation scale and the tracker ids of the occurrences.
     "count": the node's valid-occurrence count in the batch; "time" (the
     paper's t2 - t1): max(t_now - t_prev, 0), t_prev read before the
-    memory stage wrote `last_update`."""
+    memory stage wrote `last_update`. The ids are the nodes, or with
+    hashed trackers (Sec. 5.3) their buckets, node % pres_buckets."""
     nodes, mask = info["nodes"], info["mask"]
+    ids = nodes % cfg.pres_buckets if cfg.pres_buckets else nodes
     if cfg.pres_scale == "time":
-        return torch.clamp(info["t_now"] - info["t_prev"], min=0.0), nodes
+        return torch.clamp(info["t_now"] - info["t_prev"], min=0.0), ids
     keys = torch.where(mask, nodes, torch.full_like(nodes, cfg.n_nodes))
     counts = torch.zeros(cfg.n_nodes + 1, dtype=torch.float32,
                          device=nodes.device)
     counts.index_add_(0, keys, mask.to(torch.float32))
-    return counts[nodes], nodes
+    return counts[nodes], ids
 
 
 def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
     """Fuse the measured rows of the cell route with the GMM prediction
-    through the `pres_filter` kernel (Eq. 7 -> 8 -> 9) and write each
-    node's fused row of its selected occurrence into the table, IN PLACE
-    on `mem` (autograd records the write). Returns (mem, fused, delta)."""
+    (Eq. 7 -> 8 -> 9) and write each node's fused row of its selected
+    occurrence into the table, IN PLACE on `mem` (autograd records the
+    write). With cfg.use_kernels the `pres_filter` kernel; without, the
+    reference's plain chain: `pres.predict`, `pres.correct`, then the
+    delta rate by cfg.delta_mode, per unit of the scale. Returns (mem,
+    fused, delta)."""
     scale, pres_ids = _pres_scale_and_ids(cfg, info)
-    dmean = pres.mixture_mean(pres_state, pres_ids)
-    gamma = torch.sigmoid(params["pres"]["gamma_logit"])
-    fused, delta = kops.pres_filter(
-        info["s_prev"], info["s_meas"], dmean, scale, gamma,
-        clip=cfg.pres_clip, delta_mode=cfg.delta_mode, mode=cfg.kernels_mode)
+    if cfg.use_kernels:
+        dmean = pres.mixture_mean(pres_state, pres_ids)
+        gamma = torch.sigmoid(params["pres"]["gamma_logit"])
+        fused, delta = kops.pres_filter(
+            info["s_prev"], info["s_meas"], dmean, scale, gamma,
+            clip=cfg.pres_clip, delta_mode=cfg.delta_mode,
+            mode=cfg.kernels_mode)
+    else:
+        s_pred = pres.predict(pres_state, info["s_prev"], scale, pres_ids,
+                              clip=cfg.pres_clip)
+        fused = pres.correct(params["pres"], s_pred, info["s_meas"])
+        base = s_pred if cfg.delta_mode == "innovation" else info["s_prev"]
+        delta = (fused - base) / torch.clamp(scale, min=1.0)[:, None]
     keep = info["written"]
     mem.mem[info["nodes"].index_select(0, keep)] = fused.index_select(0, keep)
     return mem, fused, delta
@@ -122,14 +136,13 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
 
 def memory_and_pres(params, cfg: MDGNNConfig, state, batch: EventBatch):
     """MEMORY stage + PRES fusion, shared by the train, eval and serve
-    steps. With PRES and the GRU cell: the fused `memory_update_table`
-    pass. Otherwise the cell-based `mdgnn.memory_update` (the `gru_cell`
-    kernel or the rnn cell) and, with PRES, `_apply_pres` (the
-    `pres_filter` kernel), the cell's rows left unwritten; without PRES the
-    fused rows are the measurements and the deltas are zero.
-    Returns (mem, info, fused_rows, deltas)."""
+    steps. With cfg.use_kernels, PRES and the GRU cell: the fused
+    `memory_update_table` pass. Otherwise the cell-based
+    `mdgnn.memory_update` and, with PRES, `_apply_pres`, the cell's rows
+    left unwritten; without PRES the fused rows are the measurements and
+    the deltas are zero. Returns (mem, info, fused_rows, deltas)."""
     mdgnn.check_supported(cfg)
-    if cfg.use_pres and cfg.memory_cell == "gru":
+    if cfg.use_kernels and cfg.use_pres and cfg.memory_cell == "gru":
         return _fused_memory_update(params, cfg, state, batch)
     mem2, info = mdgnn.memory_update(params, cfg, state["memory"], batch,
                                      defer_write=cfg.use_pres)
@@ -177,13 +190,15 @@ def maintain_state(cfg: MDGNNConfig, params, state, aux, batch: EventBatch,
                    track_deltas: bool = True) -> None:
     """Post-step state maintenance, in place: detach the memory (the JAX
     step's stop_gradient), update the PRES trackers (with PRES and
-    `track_deltas`), append the batch to the neighbour rings and, for
-    APAN, its messages to the mailboxes."""
+    `track_deltas`; at node % pres_buckets with hashed trackers), append
+    the batch to the neighbour rings and, for APAN, its messages to the
+    mailboxes."""
     state["memory"].mem.detach_()
     state["memory"].last_update.detach_()
     if track_deltas and cfg.use_pres:
         nodes = aux["info_nodes"]
-        pres.update_trackers(state["pres"], nodes, aux["delta"],
+        ids = nodes % cfg.pres_buckets if cfg.pres_buckets else nodes
+        pres.update_trackers(state["pres"], ids, aux["delta"],
                              torch.zeros_like(nodes),
                              aux["info_selected"] & aux["info_mask"])
     batching.update_neighbors(state["neighbors"], batch)
@@ -257,6 +272,8 @@ class EpochResult:
     ap: float
     loss: float
     seconds: float
+    # with run_epoch(collect_logits=True): the AP of each step's logits
+    aps: list = dataclasses.field(default_factory=list)
 
 
 def _negatives(negatives, generator, batch, dst_range):
@@ -277,14 +294,32 @@ def _logits_ap(pos_all, neg_all):
     return pos, neg, metrics_lib.average_precision(pos, neg)
 
 
+def epoch_result(losses, pos_all, neg_all, seconds_from, collect_logits):
+    """The EpochResult of an epoch's device losses and logits, fetched in
+    one copy each; with `collect_logits` the AP of every step too (from
+    the same copy, split by step)."""
+    loss = float(np.mean(torch.stack(losses).double().cpu().numpy()))
+    pos, neg, ap = _logits_ap(pos_all, neg_all)
+    aps = []
+    if collect_logits:
+        cut = lambda a, parts: np.split(a, np.cumsum(
+            [p.shape[0] for p in parts])[:-1])
+        aps = [metrics_lib.average_precision(p, n) for p, n in
+               zip(cut(pos, pos_all), cut(neg, neg_all))]
+    return EpochResult(ap, loss, time.perf_counter() - seconds_from, aps)
+
+
 def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
-              train_step, generator, dst_range, negatives=None):
+              train_step, generator, dst_range, negatives=None,
+              collect_logits=False):
     """One training epoch over the temporal batches (lag-one).
 
     Negatives are drawn from `generator` unless `negatives` gives one
     batch per step (the parity tests inject the JAX package's draws).
     Losses and logits stay on the device until the epoch ends, so the loop
-    itself does not wait for the device."""
+    itself does not wait for the device; `collect_logits` adds each
+    step's AP (`EpochResult.aps`), computed from the same end-of-epoch
+    copy."""
     t0 = time.perf_counter()
     losses, pos_all, neg_all = [], [], []
     negs = None if negatives is None else iter(negatives)
@@ -298,10 +333,8 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
         pos_all.append(m["logit_p"])
         neg_all.append(m["logit_n"])
         prev_batch = batch
-    loss = float(np.mean(torch.stack(losses).double().cpu().numpy()))
-    _, _, ap = _logits_ap(pos_all, neg_all)
-    return params, opt_state, state, EpochResult(
-        ap, loss, time.perf_counter() - t0)
+    return params, opt_state, state, epoch_result(
+        losses, pos_all, neg_all, t0, collect_logits)
 
 
 def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,

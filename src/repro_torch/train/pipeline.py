@@ -6,7 +6,8 @@ The MEMORY stage writes the live table exactly as the lag-one step does
 a snapshot of the table refreshed every `cfg.pipeline_depth` steps, so a
 row it reads is at most `pipeline_depth` batch-writes stale, and the rows
 whose writes are still in flight are filled with the PRES Eq. 7
-prediction through the `pres_predict` kernel (`stale_read_table`). The
+prediction (`stale_read_table`: the `pres_predict` kernel with
+cfg.use_kernels, `pres.predict` without). The
 coherence term (Eq. 10) is the only gradient path from the loss to the
 memory and message parameters, so the step refuses to run without it.
 
@@ -22,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.core import coherence, pres
@@ -63,14 +63,16 @@ class PipelineState:
 def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
                      live_last_update=None):
     """The table the embedding stage reads: the snapshot rows extrapolated
-    over their staleness gap by Eq. 7, through the `pres_predict` kernel
-    over the whole (N, D) snapshot. The scale follows cfg.pres_scale:
-    "count" the pending count, "time" max(live_last_update -
-    read_last_update, 0), where `live_last_update` is the live table's
-    (only that scale reads it). Rows with nothing in flight have scale 0 and
-    pass unchanged; without PRES the trackers are empty, the mixture mean
-    is 0 and this is the raw snapshot. The mixture mean is computed on
-    views of the N tracker rows, not a gather."""
+    over their staleness gap by Eq. 7 over the whole (N, D) snapshot,
+    through the `pres_predict` kernel with cfg.use_kernels, else the plain
+    `pres.predict`. The scale follows cfg.pres_scale: "count" the pending
+    count, "time" max(live_last_update - read_last_update, 0), where
+    `live_last_update` is the live table's (only that scale reads it).
+    Rows with nothing in flight have scale 0 and pass unchanged; without
+    PRES the trackers are empty, the mixture mean is 0 and this is the raw
+    snapshot. The mixture means are computed once on views of the tracker
+    rows (`pres.mixture_mean_rows`: node i reads bucket i % pres_buckets
+    with hashed trackers), not gathered per node."""
     n = pstate.read_mem.shape[0]
     if cfg.pres_scale == "time":
         if live_last_update is None:
@@ -79,7 +81,10 @@ def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
                             min=0.0)
     else:
         scale = pstate.pending[:n]
-    dmean = pres.mixture_mean_rows(pres_state)
+    if not cfg.use_kernels:
+        return pres.predict(pres_state, pstate.read_mem, scale,
+                            clip=cfg.pres_clip)
+    dmean = pres.mixture_mean_rows(pres_state, n)
     return kops.pres_predict(pstate.read_mem, dmean, scale,
                              clip=cfg.pres_clip, mode=cfg.kernels_mode)
 
@@ -166,17 +171,20 @@ def make_train_step(cfg: MDGNNConfig, opt):
 
 
 def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
-              train_step, generator, dst_range, negatives=None):
+              train_step, generator, dst_range, negatives=None,
+              collect_logits=False):
     """One epoch: `loop.run_epoch` at depth 0; otherwise the pipelined
     schedule from a fresh snapshot of the state's memory. `batches` may be
     a list or an iterator (`EventStream.prefetch_batches`, which is closed
     when the epoch ends or fails). Negatives are drawn from `generator`
     unless `negatives` gives one batch per step. Losses and logits stay on
-    the device until the epoch ends."""
+    the device until the epoch ends; `collect_logits` adds each step's AP
+    (`EpochResult.aps`)."""
     if cfg.pipeline_depth == 0:
         return loop_lib.run_epoch(params, opt_state, state, batches, cfg,
                                   train_step, generator, dst_range,
-                                  negatives=negatives)
+                                  negatives=negatives,
+                                  collect_logits=collect_logits)
     t0 = time.perf_counter()
     pstate = PipelineState.init(state["memory"])
     losses, pos_all, neg_all = [], [], []
@@ -196,7 +204,5 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
         close = getattr(it, "close", None)
         if close is not None:
             close()
-    loss = float(np.mean(torch.stack(losses).double().cpu().numpy()))
-    _, _, ap = loop_lib._logits_ap(pos_all, neg_all)
-    return params, opt_state, state, loop_lib.EpochResult(
-        ap, loss, time.perf_counter() - t0)
+    return params, opt_state, state, loop_lib.epoch_result(
+        losses, pos_all, neg_all, t0, collect_logits)

@@ -48,6 +48,7 @@ def test_serving_imports_with_jax_blocked():
             "import repro_torch.launch.train, repro_torch.train.loop\n"
             "import repro_torch.optim, repro_torch.graph.negatives\n"
             "import repro_torch.core.coherence, repro_torch.bridge\n"
+            "import repro_torch.core.theory, repro_torch.core.pres\n"
             "import repro_torch.train.pipeline, repro_torch.models.embeddings\n"
             "import repro_torch.archs.api, repro_torch.nn.attention\n"
             "import repro_torch.nn.xlstm, repro_torch.configs\n"

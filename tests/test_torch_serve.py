@@ -192,12 +192,15 @@ def test_stream_chunk_byte_identical(lo, hi):
 
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
-    for change in (dict(variant="jodie"), dict(pres_buckets=8),
-                   dict(mem_dtype="bfloat16"), dict(anchor_fraction=0.5),
-                   dict(n_shards=2), dict(use_kernels=False),
-                   dict(scan_chunk=2)):
+    for change in (dict(mem_dtype="bfloat16"), dict(n_shards=2),
+                   dict(scan_chunk=2), dict(event_store="x"),
+                   dict(obs_metrics=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmdgnn.check_supported(dataclasses.replace(cfg, **change))
+    # ported by the tenth slice: accepted
+    for change in (dict(variant="jodie"), dict(pres_buckets=8),
+                   dict(anchor_fraction=0.5), dict(use_kernels=False)):
+        tmdgnn.check_supported(dataclasses.replace(cfg, **change))
     state = tmdgnn.init_state(cfg, "cpu")
     params = tmdgnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="interpret"):
@@ -205,9 +208,9 @@ def test_unsupported_config_names_roadmap_item(tiny_stream):
                     params, state, device="cpu").query([0], [1], [1.0])
 
 
-@pytest.mark.parametrize("model", ["apan", "tgn"])
+@pytest.mark.parametrize("model", ["apan", "tgn", "jodie"])
 def test_launch_serve_cli_on_cpu(model, capsys):
-    """The serve CLI's replay and top-k on the CPU, APAN and TGN."""
+    """The serve CLI's replay and top-k on the CPU, APAN, TGN and JODIE."""
     from repro_torch.launch import serve as tserve
     rep = tserve.main(["--dataset", "wiki-small", "--model", model,
                        "--pres", "--use-kernels", "--device", "cpu",
@@ -225,6 +228,3 @@ def test_launch_serve_cli_refuses_unported_flags():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(["--pres", "--use-kernels", "--device", "cpu",
                          *flags])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.main(["--model", "jodie", "--pres", "--use-kernels",
-                     "--device", "cpu", "--max-events", "10"])

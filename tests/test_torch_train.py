@@ -282,10 +282,12 @@ def test_launch_train_cli_on_cpu(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--use-kernels", "--device", "cpu",
                      "--scan-chunk", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--device", "cpu"])            # no --use-kernels
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.main(["--use-kernels", "--device", "cpu", "--model", "jodie"])
+    # no --use-kernels: the plain route, as the JAX CLI runs; and JODIE
+    small = ["--device", "cpu", "--d-mem", "8", "--batch-size", "2000",
+             "--epochs", "1"]
+    for flags in ([], ["--use-kernels", "--model", "jodie"]):
+        hist = ttrain.main(small + flags)
+        assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.main(["--pres", "--use-kernels"])
