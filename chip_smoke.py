@@ -35,19 +35,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    into its buffer, I at its 80- and 160-item blocks +- 1 and at the
    switch between them, B = 17 and 1,024 at I = 20,000, D = 128, and
    D = 172).
-4. serve-config at the paper model's widths (tgn_pres CONFIG: d=100,
+4. serve-config at the paper model's widths (tgn_pres.CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
-   over the serve tail with recommend_topk. The same replay then runs
-   with kernels_mode="oracle" and the states, query scores and top-k are
+   over the serve tail with recommend_topk, the engine as users get it:
+   warmup() captures a CUDA graph per bucket for the bodies
+   `captured_bodies(cfg)` names (query and top-k always, the fold where
+   the memory stage is the memory_update_table kernel), and every key must
+   be prepared once, with nothing prepared during the replay
+   (post_warmup_traces empty). The same replay then runs through a
+   capture=False engine (events/s, p50/p99, peak memory side by side; AP
+   within 1e-3, states within `_compare_states`' tolerances, the same
+   launch counts: a replay adds its graph's launches, counted at capture),
+   and with kernels_mode="oracle"; the states, query scores and top-k are
    compared.
 5. serve-production at the PRODUCTION widths (d=128, d_time=64, K=16, 2
    layers) on the first events of the 120,000-node stream-small graph,
    with a comparison of queries and top-k against the plain path.
    serve-config-apan / serve-production-apan: the same for APAN (mailbox
    attention through neighbor_attn); serve-config-rnn /
-   serve-production-rnn: the rnn memory cell, PRES through pres_filter;
+   serve-production-rnn: the rnn memory cell, PRES through pres_filter
+   (its fold stays eager: mdgnn.memory_update waits for the host);
    serve-config-jodie / serve-production-jodie: JODIE with PRES (its time
    projection has no kernel: memory_update_table and link_score).
+   serve-parity: serve/parity.py's gate, the captured engine against
+   loop.make_eval_step in lock step over wiki-small's first 6,400 events
+   (buckets 16 and 64), within 1e-5, each key prepared once.
 6. train-config-pres / -std: Alg. 2 (PRES) and Alg. 1 (the gru_cell
    kernel) at CONFIG widths on wiki-small, one epoch (27 lag-one steps at
    b=500) through the epoch loop, then loop.evaluate over the validation
@@ -73,7 +85,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (`python -m repro_torch.launch.train`, its default device); cli-new:
    the CLI with --pipeline-depth 2, --no-dedup-embed and --model apan;
    cli-time: with --pres-scale time; cli-jodie: --model jodie; cli-plain:
-   without --use-kernels (no launch).
+   without --use-kernels (no launch); cli-ckpt: the train CLI with
+   --checkpoint, then the serve CLI with --checkpoint on the file, and an
+   engine restored from it against one built from the trainer's own
+   params and state (query scores within TOL); cli-csv: the train CLI with
+   --csv tests/data/mini_jodie.csv.
 8. train-production-pres / -std / -pipe / -dense / -apan / -rnn / -jodie:
    40 steps at PRODUCTION widths on the first 41,000 stream-small events
    (b=1000), the first 3 steps' losses compared with the plain path; step
@@ -92,7 +108,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    for it; and `device_ms`, the kernel's own CUDA time a call from
    torch.profiler)
    on the largest inputs it received in the phase that captured them (the
-   serve phases' probe after their counters were read; gru_cell during
+   serve phases' probe, through the eager engine, after their counters
+   were read; gru_cell during
    the Alg. 1 train phases; pres_predict, neighbor_attn, pres_filter and
    memory_update in a probe of their train phases' path on the trained
    state; flash_attn and ssd_chunk in the zoo's bf16 prefill), compared
@@ -197,6 +214,8 @@ AP_LIMIT = 2e-2
 # session that follows such windows in the same process drops kernels,
 # and the rows' device_ms come from sessions of their own
 DEFERRED_PROFILES = []
+# label -> the window's wall ms, device busy ms and share, launches
+PROFILES = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -904,7 +923,8 @@ def _report(label, rep, counts, engine):
         f"events/s={rep.events_per_sec:.1f} "
         f"ingest p50={rep.ingest_p50_ms:.3f}ms p99={rep.ingest_p99_ms:.3f}ms "
         f"query p50={rep.query_p50_ms:.3f}ms p99={rep.query_p99_ms:.3f}ms "
-        f"online_AP={rep.online_ap:.4f}")
+        f"online_AP={rep.online_ap:.4f} "
+        f"post_warmup_traces={dict(rep.post_warmup_traces)}")
     st = engine.state
     mb = lambda *ts: sum(x.numel() * x.element_size() for x in ts) / 1e6
     box = (f" mailbox={mb(*st['mailbox'].values()):.1f}"
@@ -912,58 +932,109 @@ def _report(label, rep, counts, engine):
     log(f"[{label}] state MB: memory={mb(st['memory'].mem):.1f} "
         f"trackers={mb(st['pres'].xi, st['pres'].psi, st['pres'].n):.1f} "
         f"rings={mb(*st['neighbors'].values()):.1f}{box}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+        f"memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB allocated,"
+        f" {torch.cuda.max_memory_reserved() / 1e6:.1f} MB reserved")
+
+
+def check_captured(label, eng):
+    """Every key the engine prepared, once; a CUDA graph for exactly the
+    keys whose body `captured_bodies(cfg)` names (a capture that failed
+    would have raised)."""
+    from repro_torch.serve import captured_bodies
+    kinds = captured_bodies(eng.cfg)
+    graphs = sorted(k for k, slot in eng._slots.items()
+                    if slot.graph is not None)
+    log(f"[{label}] trace_counts {sorted(eng.trace_counts.items())}; "
+        f"captured {graphs}")
+    require(all(c == 1 for c in eng.trace_counts.values()),
+            f"{label}: a key prepared twice: {dict(eng.trace_counts)}")
+    require(all((slot.graph is not None) == (k[0] in kinds)
+                for k, slot in eng._slots.items()),
+            f"{label}: captured {graphs}, expected the {sorted(kinds)} keys")
+    return graphs
 
 
 def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
                 max_events, query_batch, topk_src, k, oracle_replay,
                 big_query, probe, expect=SERVE_KERNELS, profile=0):
+    """The engine as users get it (a CUDA graph per bucket where
+    `captured_bodies(cfg)` allows), warmed up, then the replay, a large
+    query and top-k with the launch counters set to 0 just before and
+    read just after; the same through a capture=False engine, held to it
+    (AP within 1e-3, states within `_compare_states`' tolerances, the
+    same launch counts); then the plain versions (kernels_mode="oracle")."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import mdgnn
     from repro_torch.serve import MicroBatcher, ServeEngine, replay
 
-    def engine(mode):
+    def engine(mode, capture=True):
         c = dataclasses.replace(cfg, kernels_mode=mode)
         params = mdgnn.init_params(c, torch.Generator().manual_seed(0), dev)
         return ServeEngine(c, params, mdgnn.init_state(c, dev),
                            batcher=MicroBatcher(d_edge=stream.feat_dim),
-                           item_range=dst_range, device=dev)
+                           item_range=dst_range, device=dev, capture=capture)
 
-    eng = engine("auto")
-    eng.warmup(query=True, topk_k=k)
-    folds = [0]
-    body = eng._ingest_body
-
-    def counted(batch):
-        folds[0] += 1
-        return body(batch)
-    eng._ingest_body = counted
-    torch.cuda.reset_peak_memory_stats()
     kw = dict(rate=rate, tick=tick, query_batch=query_batch, seed=0,
               max_events=max_events, warmup=False)
-    ops.reset_launch_counts()
-    rep = replay(eng, stream, dst_range, **kw)
     q_src, q_dst = stream.src[:big_query], stream.dst[:big_query]
     q_t = np.full(big_query, stream.t[max_events - 1], np.float32)
-    scores = eng.query(q_src, q_dst, q_t)
     ts = np.full(len(topk_src), stream.t[max_events - 1], np.float32)
-    vals, ids = eng.recommend_topk(topk_src, ts, k)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+
+    def drive(eng):
+        """Warm-up (the captures), then the counted run: (report, counts,
+        folds, scores, top-k values and ids, warm-up s, peak MB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+        res0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng.warmup(query=True, topk_k=k)
+        warm_s = time.perf_counter() - t0
+        folds = [0]
+        fold = eng._fold
+
+        def counted(batch):
+            folds[0] += 1
+            return fold(batch)
+        eng._fold = counted
+        ops.reset_launch_counts()
+        rep = replay(eng, stream, dst_range, **kw)
+        scores = eng.query(q_src, q_dst, q_t)
+        vals, ids = eng.recommend_topk(topk_src, ts, k)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        del eng._fold
+        # the engine's own: peak allocated and reserved above the start
+        # (its state was made before; earlier engines' pools stay out)
+        peak = {"allocated": (torch.cuda.max_memory_allocated()
+                              - alloc0) / 1e6,
+                "reserved": (torch.cuda.max_memory_reserved() - res0) / 1e6}
+        return rep, counts, folds[0], scores, vals, ids, warm_s, peak
+
+    eng = engine("auto")
+    rep, counts, folds, scores, vals, ids, warm_s, peak = drive(eng)
     _report(label, rep, counts, eng)
-    summary = {"events": rep.n_events, "folds": folds[0],
+    graphs = check_captured(label, eng)
+    summary = {"events": rep.n_events, "folds": folds,
                "events_per_s": rep.events_per_sec,
                "ingest_p50_ms": rep.ingest_p50_ms,
                "ingest_p99_ms": rep.ingest_p99_ms,
                "query_p50_ms": rep.query_p50_ms,
                "query_p99_ms": rep.query_p99_ms, "online_ap": rep.online_ap,
-               "peak_mem_mb": torch.cuda.max_memory_allocated() / 1e6}
+               "peak_mem_mb": peak["allocated"],
+               "peak_reserved_mb": peak["reserved"], "warmup_s": warm_s,
+               "captured": [list(g) for g in graphs],
+               "post_warmup_traces": {" ".join(map(str, key)): c for key, c
+                                      in rep.post_warmup_traces.items()}}
+    require(not rep.post_warmup_traces,
+            f"{label}: the replay prepared keys after warm-up: "
+            f"{rep.post_warmup_traces}")
     check_launches(label, counts, expect)
     stage = memory_stage_kernel(cfg)
-    require(counts[stage] == folds[0], f"{label}: {stage} launched "
-            f"{counts[stage]} times in {folds[0]} folds")
+    require(counts[stage] == folds, f"{label}: {stage} launched "
+            f"{counts[stage]} times in {folds} folds")
     require(np.isfinite(scores).all() and scores.shape == (big_query,),
             f"{label}: bad query scores")
     require(vals.shape == (len(topk_src), k) and np.isfinite(vals).all()
@@ -971,7 +1042,42 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
             f"{label}: bad top-k output")
     require(0.0 <= rep.online_ap <= 1.0, f"{label}: AP out of range")
 
-    plain = engine("oracle")
+    # the same replay through the engine without graphs
+    eager = engine("auto", capture=False)
+    rep_e, counts_e, folds_e, scores_e, vals_e, _, warm_e, peak_e = \
+        drive(eager)
+    errs = _compare_states(eng.state, eager.state, f"{label} vs eager")
+    e_err = max(float(np.abs(scores - scores_e).max()),
+                float(np.abs(vals - vals_e).max()))
+    summary["eager"] = {
+        "events_per_s": rep_e.events_per_sec,
+        "ingest_p50_ms": rep_e.ingest_p50_ms,
+        "ingest_p99_ms": rep_e.ingest_p99_ms,
+        "query_p50_ms": rep_e.query_p50_ms,
+        "query_p99_ms": rep_e.query_p99_ms, "online_ap": rep_e.online_ap,
+        "peak_mem_mb": peak_e["allocated"],
+        "peak_reserved_mb": peak_e["reserved"], "warmup_s": warm_e,
+        "state_diff": errs, "score_diff": e_err}
+    log(f"[{label}] captured / eager: events/s {rep.events_per_sec:.1f} / "
+        f"{rep_e.events_per_sec:.1f}, ingest p50 {rep.ingest_p50_ms:.3f} / "
+        f"{rep_e.ingest_p50_ms:.3f} ms, p99 {rep.ingest_p99_ms:.3f} / "
+        f"{rep_e.ingest_p99_ms:.3f} ms, query p50 {rep.query_p50_ms:.3f} / "
+        f"{rep_e.query_p50_ms:.3f} ms, p99 {rep.query_p99_ms:.3f} / "
+        f"{rep_e.query_p99_ms:.3f} ms, AP {rep.online_ap:.6f} / "
+        f"{rep_e.online_ap:.6f}, post_warmup_traces "
+        f"{dict(rep.post_warmup_traces)} / {dict(rep_e.post_warmup_traces)}, "
+        f"peak MB above the start, allocated {peak['allocated']:.1f} / "
+        f"{peak_e['allocated']:.1f}, reserved {peak['reserved']:.1f} / "
+        f"{peak_e['reserved']:.1f}, warm-up {warm_s:.2f} / {warm_e:.2f} s; "
+        f"max|state diff| {json.dumps(errs)}, max|score diff| {e_err:.3g}")
+    require(abs(rep.online_ap - rep_e.online_ap) <= 1e-3,
+            f"{label}: AP {rep.online_ap} captured vs {rep_e.online_ap} "
+            f"eager")
+    require(counts_e == counts and folds_e == folds,
+            f"{label}: launches {counts} in {folds} folds captured, "
+            f"{counts_e} in {folds_e} eager")
+
+    plain = engine("oracle", capture=False)
     if oracle_replay:
         rep_o = replay(plain, stream, dst_range, **kw)
         errs = _compare_states(eng.state, plain.state, label)
@@ -994,19 +1100,21 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
     require(k_err <= 1e-3 * max(1.0, float(np.abs(v_o).max())),
             f"{label}: top-k scores differ from the plain path by {k_err}")
 
-    # phase 6's inputs: one more fold, query and top-k on the final state,
-    # made after the counters were read
+    # phase 10's inputs: one more fold, query and top-k on the eager
+    # engine's final state (a graph replay calls no wrapper to capture
+    # them from), made after the counters were read
     with Capture() as cap:
         hi = max_events + probe
-        eng.ingest(stream.src[max_events:hi], stream.dst[max_events:hi],
-                   stream.t[max_events:hi], stream.feat[max_events:hi])
-        eng.query(q_src, q_dst, q_t)
-        eng.recommend_topk(topk_src, ts, k)
+        eager.ingest(stream.src[max_events:hi], stream.dst[max_events:hi],
+                     stream.t[max_events:hi], stream.feat[max_events:hi])
+        eager.query(q_src, q_dst, q_t)
+        eager.recommend_topk(topk_src, ts, k)
         torch.cuda.synchronize()
     if profile:
-        DEFERRED_PROFILES.append(functools.partial(
-            _profile, label, eng, stream, max_events + probe, profile,
-            q_src[:64], q_dst[:64], q_t[:64]))
+        for tag, e in ((label, eng), (f"{label}-eager", eager)):
+            DEFERRED_PROFILES.append(functools.partial(
+                _profile, tag, e, stream, max_events + probe, profile,
+                q_src[:64], q_dst[:64], q_t[:64]))
     return counts, cap.best, summary
 
 
@@ -1058,6 +1166,10 @@ def _report_profile(label, prof, wall_us, what):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith("serve_")]
     busy_us = sum(e.self_device_time_total for e in events)
+    PROFILES[label] = {"window": what, "wall_ms": wall_us / 1e3,
+                       "busy_ms": busy_us / 1e3,
+                       "busy_share": busy_us / wall_us,
+                       "launches": sum(e.count for e in events)}
     log(f"[{label}] profile: {what}: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
         f"{sum(e.count for e in events)} kernel launches")
@@ -1474,6 +1586,111 @@ def cli_phase(label, argv, expect):
     return h
 
 
+def parity_phase(label, cfg, stream, dst_range, dev):
+    """serve/parity.py's gate on the card: the captured engine against
+    `loop.make_eval_step` in lock step over `stream` (buckets 16 and 64),
+    within the JAX gate's 1e-5, each key prepared once."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.serve import MicroBatcher, check_offline_parity
+    params = mdgnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    state = mdgnn.init_state(cfg, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    max_diff, n_scored, eng = check_offline_parity(
+        cfg, params, state, stream, dst_range, device=dev,
+        batcher=MicroBatcher(buckets=(16, 64), d_edge=cfg.d_edge))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"[{label}] {len(stream)} events, {n_scored} pairs scored: "
+        f"max|engine - eval_step| = {max_diff:.3g} ({secs:.1f}s)")
+    graphs = check_captured(label, eng)
+    check_launches(label, counts, ("memory_update_table", "embed_attn"))
+    require(n_scored > 1000, f"{label}: only {n_scored} pairs scored")
+    require(max_diff < 1e-5, f"{label}: serve/evaluate drift {max_diff}")
+    require(("ingest", 64) in graphs, f"{label}: the fold was not captured")
+    return {"max_diff": max_diff, "n_scored": n_scored, "seconds": secs,
+            "trace_counts": {" ".join(map(str, key)): c for key, c
+                             in eng.trace_counts.items()}}
+
+
+def cli_ckpt_phase(label, cfg, stream, dst_range, dev, expect):
+    """The train CLI with --checkpoint (one epoch on the card), then the
+    serve CLI with --checkpoint on the file; then an engine restored by
+    `ServeEngine.from_checkpoint` against one built from the trainer's own
+    params and state (kept when it saved): the same query scores within
+    TOL."""
+    import tempfile
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import mdgnn
+    from repro_torch.serve import ServeEngine
+    kept = {}
+    bundle = bridge.mdgnn_bundle
+
+    def keep(params, state):
+        kept.update(params=params, state=mdgnn.clone_state(state))
+        return bundle(params, state)
+    model = ["--dataset", "wiki-small", "--model", "tgn", "--pres",
+             "--use-kernels"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "wiki.ckpt")
+        bridge.mdgnn_bundle = keep
+        try:
+            ops.reset_launch_counts()
+            hist = train_cli.main(model + ["--epochs", "1", "--checkpoint",
+                                           path])
+        finally:
+            bridge.mdgnn_bundle = bundle
+        check_launches(f"{label}-train", ops.launch_counts(), expect)
+        require(pathlib.Path(path).is_file() and "params" in kept,
+                f"{label}: no checkpoint written")
+        ops.reset_launch_counts()
+        rep = serve_cli.main(model + ["--checkpoint", path, "--max-events",
+                                      "2000", "--topk", "5"])
+        check_launches(f"{label}-serve", ops.launch_counts(), SERVE_KERNELS)
+        require(not rep.post_warmup_traces and 0.0 <= rep.online_ap <= 1.0,
+                f"{label}: serve CLI report {rep}")
+        restored = ServeEngine.from_checkpoint(path, cfg, device=dev,
+                                               item_range=dst_range)
+    live = ServeEngine(cfg, kept["params"], kept["state"], device=dev,
+                       item_range=dst_range)
+    q = slice(0, 512)
+    t = np.full(512, stream.t[-1], np.float32)
+    got = restored.query(stream.src[q], stream.dst[q], t)
+    want = live.query(stream.src[q], stream.dst[q], t)
+    err = float(np.abs(got - want).max())
+    log(f"[{label}] restored vs in-memory engine: max|query diff| "
+        f"{err:.3g}; serve CLI AP {rep.online_ap:.4f}")
+    require(np.isfinite(got).all()
+            and err <= TOL["embed_attn"] * max(1.0, float(np.abs(want).max())),
+            f"{label}: restored scores differ by {err}")
+    return {"train": hist[-1], "serve_ap": rep.online_ap,
+            "restored_vs_live": err}
+
+
+def cli_csv_phase(label, expect):
+    """The train CLI with --csv on the checked-in mini csv, one epoch on
+    the card; its validation split is one event, so val AP is nan."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    ops.reset_launch_counts()
+    hist = train_cli.main(["--csv", str(ROOT / "tests" / "data" /
+                                        "mini_jodie.csv"),
+                           "--model", "tgn", "--pres", "--use-kernels",
+                           "--batch-size", "2", "--epochs", "1"])
+    check_launches(label, ops.launch_counts(), expect)
+    require(len(hist) == 1 and np.isfinite(hist[0]["loss"]),
+            f"{label}: bad history {hist}")
+    return hist[0]
+
+
 def op_phase(label, name, inputs):
     """The registry op `name` on the inputs a phase captured, as a train
     step runs it: the kernel forward under autograd, then the backward
@@ -1707,13 +1924,13 @@ LIBRARY = {"gru_cell": library_gru_cell,
 # phase groups, in the order they run; `--only` picks some
 PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "serve-production-apan", "serve-config-rnn", "serve-production-rnn",
-          "serve-config-jodie", "serve-production-jodie",
+          "serve-config-jodie", "serve-production-jodie", "serve-parity",
           "train-config", "cli", "train-production", "train-config-pipe",
           "train-config-dense", "train-config-apan", "train-config-rnn",
           "train-config-rnn-std", "train-config-time", "train-config-jodie",
           "train-config-buckets", "train-config-pipe-buckets",
           "train-config-plain", "cli-new", "cli-time", "cli-jodie",
-          "cli-plain", "train-production-pipe", "train-production-dense",
+          "cli-plain", "cli-ckpt", "cli-csv", "train-production-pipe", "train-production-dense",
           "train-production-apan", "train-production-rnn",
           "train-production-jodie", "zoo-qwen3", "zoo-xlstm", "cli-zoo")
 
@@ -1871,33 +2088,33 @@ def main(argv=None):
             err = check_kernel(name, a, kw, label)
             log(f"[edge] {name} {label}: max_abs_err={err:.3g}")
 
+    from repro_torch.configs import tgn_pres
     from repro_torch.graph import datasets
-    from repro_torch.models.mdgnn import MDGNNConfig
     spec = datasets.SPECS["wiki-small"]
     wiki = datasets.get_dataset("wiki-small", 0)
     _, wiki_serve = wiki.train_serve_split(0.3)
     wiki_dst = (spec.n_users, spec.n_users + spec.n_items)
-    # tgn_pres.CONFIG widths and tgn_pres.PRODUCTION widths (the graph cut
-    # to stream-small's 120,000 nodes)
-    cfg = MDGNNConfig(variant="tgn", n_nodes=wiki.num_nodes,
-                      d_edge=wiki.feat_dim, d_mem=100, d_msg=100, d_time=32,
-                      d_embed=100, n_neighbors=10, n_layers=1, use_pres=True,
-                      use_kernels=True)
+    rp = lambda c, **kw: dataclasses.replace(c, **kw)
+    # the paper model's configs, cut in scale only: n_nodes from the graph
+    # that runs them (wiki-small's 1,000; stream-small's 120,000 where
+    # PRODUCTION names 1,048,576), d_edge from the dataset (16 in both;
+    # PRODUCTION names 172), no event store (event_store=None: the port has
+    # none yet, ROADMAP Queue 1 item 17), and the kernels on
+    # (use_kernels=True); every width is the published one
+    cfg = rp(tgn_pres.CONFIG, n_nodes=wiki.num_nodes, d_edge=wiki.feat_dim,
+             use_kernels=True)
     sspec = datasets.STREAM_SPECS["stream-small"]
     n_events = 307_200
     stream = None
     if any(p.endswith("production") or "production-" in p for p in only):
         stream = datasets.stream_events(sspec, 0, n_events + 11_000)
     s_dst = (sspec.n_users, sspec.num_nodes)
-    pcfg = MDGNNConfig(variant="tgn", n_nodes=sspec.num_nodes,
-                       d_edge=sspec.feat_dim, d_mem=128, d_msg=128,
-                       d_time=64, d_embed=128, n_neighbors=16, n_layers=2,
-                       use_pres=True, use_kernels=True)
+    pcfg = rp(tgn_pres.PRODUCTION, n_nodes=sspec.num_nodes,
+              d_edge=sspec.feat_dim, event_store=None, use_kernels=True)
     apan = dict(variant="apan")
     dense = dict(dedup_embed=False)
     pipe = dict(pipeline_depth=2)
     jodie = dict(variant="jodie")
-    rp = lambda c, **kw: dataclasses.replace(c, **kw)
     # kernel name -> {"config" / "production": (captured inputs, counts)}
     captured = {}
 
@@ -1941,6 +2158,12 @@ def main(argv=None):
           JODIE_SERVE_KERNELS)
     serve("serve-production-jodie", rp(pcfg, **jodie), "production",
           JODIE_SERVE_KERNELS)
+    if "serve-parity" in only:
+        # the offline-parity gate at CONFIG widths on wiki-small's first
+        # 6,400 events (100 batches of 64)
+        serve_sum["serve-parity"] = timed(
+            "serve-parity", parity_phase, "serve-parity", cfg,
+            wiki.slice(0, 6400), wiki_dst, dev)
 
     # 6-8. training: one epoch + evaluate at CONFIG widths on wiki-small
     # (compared with the plain route), 40 steps at PRODUCTION widths on the
@@ -2051,6 +2274,13 @@ def main(argv=None):
             "train-cli-plain", cli_phase, "train-cli-plain",
             ["--dataset", "wiki-small", "--model", "tgn", "--epochs", "1",
              "--pres"], ())
+    if "cli-ckpt" in only:
+        train_sum["cli-ckpt"] = timed(
+            "cli-ckpt", cli_ckpt_phase, "cli-ckpt", cfg, wiki_serve,
+            wiki_dst, dev, pres_path)
+    if "cli-csv" in only:
+        train_sum["cli-csv"] = timed("cli-csv", cli_csv_phase, "cli-csv",
+                                     pres_path)
     if "train-production-pipe" in only:
         train("train-production-pipe", rp(pcfg, **pipe), "production",
               pipe_path, capture=("pres_predict",))
@@ -2104,7 +2334,7 @@ def main(argv=None):
         pathlib.Path(args.out).write_text(json.dumps(
             {"card": card, "kernels": rows, "more_kernel_rows": more_rows,
              "serve": serve_sum, "train": train_sum, "zoo": zoo_sum,
-             "seconds": seconds},
+             "profiles": PROFILES, "seconds": seconds},
             indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

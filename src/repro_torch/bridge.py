@@ -12,7 +12,13 @@ schedule's snapshot `{read_mem, read_last_update, pending, tick}`; and
 the model zoo's parameter trees (`embed/table`, `final_norm/scale`,
 `blocks/u{i}/b{j}/...` or, stacked, `blocks/b{j}/...` with a leading
 unit dim). Converting from JAX arrays to numpy is the caller's business; nothing here
-sees a JAX array."""
+sees a JAX array.
+
+`mdgnn_bundle` / `mdgnn_bundle_from_numpy` carry the {"params", "state"}
+bundle that the train CLI checkpoints: the state's `memory` and `pres`
+are `MemoryState` / `PresState` nodes, as the JAX state holds its
+dataclasses, so the bundle flattens and renders as JAX's does
+(`checkpoint/io.py`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -112,3 +118,27 @@ def zoo_params_to_numpy(params) -> dict:
     """The zoo parameter tree as numpy arrays, in its own layout."""
     return {k: zoo_params_to_numpy(v) if isinstance(v, dict) else _np(v)
             for k, v in params.items()}
+
+
+def mdgnn_bundle(params, state) -> dict:
+    """The {"params", "state"} checkpoint bundle in the JAX layout, as
+    views of the port's tensors: dump rows dropped, the memory and the
+    trackers as `MemoryState` and `PresState` nodes."""
+    mem, nb = state["memory"], state["neighbors"]
+    st = {"memory": MemoryState(mem=mem.mem, last_update=mem.last_update),
+          "neighbors": {k: nb[k][:-1] for k in ("nbr", "t", "ptr")},
+          "pres": state["pres"].rows()}
+    if "mailbox" in state:
+        st["mailbox"] = {k: v[:-1] for k, v in state["mailbox"].items()}
+    return {"params": params, "state": st}
+
+
+def mdgnn_bundle_from_numpy(bundle, device=None):
+    """(params, state) on `device` from a bundle of `mdgnn_bundle`'s
+    layout holding numpy arrays (the dump rows added back)."""
+    st = dict(bundle["state"])
+    mem, pr = st["memory"], st["pres"]
+    st["memory"] = {"mem": mem.mem, "last_update": mem.last_update}
+    st["pres"] = {"n": pr.n, "xi": pr.xi, "psi": pr.psi}
+    return (params_from_numpy(bundle["params"], device),
+            state_from_numpy(st, device))

@@ -1,13 +1,17 @@
 """Temporal batching machinery (counterpart of `repro/core/batching.py`):
-per-endpoint occurrences, the neighbour ring buffers (shared with APAN's
-mailbox), and the k-hop frontier expansions of the embedding path (the
-deduplicated one and the dense one).
+the pending-set probes of Defs. 1-2, per-endpoint occurrences, the
+per-node last-message and mean reductions, the neighbour ring buffers
+(shared with APAN's mailbox), the k-hop frontier expansions of the
+embedding path (the deduplicated one and the dense one) and the dedup
+probe of the benchmarks.
 
 Neighbour state layout: `nbr` (N + 1, K) int32 (-1 = empty slot), `t`
 (N + 1, K) float32 and `ptr` (N + 1,) int32, where row N is a dump row for
 masked or superseded ring writes; the state proper is rows [:N]. All
 updates are dense scatters with no data-dependent shapes."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,6 +32,27 @@ def lexsort(keys):
     return order
 
 
+def pending_counts(src, dst, t, mask=None):
+    """|P(e, B)| for every event e of a batch (Defs. 1-2): the number of
+    earlier events in the batch that share a vertex with it, (b,) int64.
+    O(b^2): an analysis probe, not a training-path op."""
+    share = ((src[:, None] == src[None, :]) | (src[:, None] == dst[None, :])
+             | (dst[:, None] == src[None, :])
+             | (dst[:, None] == dst[None, :]))
+    pend = share & (t[None, :] < t[:, None])
+    if mask is not None:
+        pend = pend & mask[None, :] & mask[:, None]
+    return pend.sum(dim=1)
+
+
+def pending_fraction(batch: EventBatch) -> float:
+    """Fraction of the batch's valid events with a non-empty pending set,
+    which grows with the batch size (the knob behind Theorem 2)."""
+    cnt = pending_counts(batch.src, batch.dst, batch.t, batch.mask)
+    valid = batch.mask.sum()
+    return float(((cnt > 0) & batch.mask).sum() / torch.clamp(valid, min=1))
+
+
 def node_occurrences(batch: EventBatch):
     """Per-endpoint occurrences in [all srcs, all dsts] order:
     (nodes, times, other, feat, mask), each of length 2b."""
@@ -37,6 +62,29 @@ def node_occurrences(batch: EventBatch):
     feat = torch.cat([batch.feat, batch.feat], dim=0)
     mask = torch.cat([batch.mask, batch.mask])
     return nodes, times, other, feat, mask
+
+
+def last_per_node(nodes, times, values, mask, num_nodes: int):
+    """The chronologically last valid value of each node (TGN's
+    aggregator): ((N, D) values, (N,) times, (N,) touched flags). Sorted by
+    (node, time) with masked rows first in their node's run, the last row
+    of each run is taken if valid; the others write a dump row."""
+    big = torch.where(mask, times, torch.full_like(times, -math.inf))
+    order = lexsort((big, nodes))
+    n_sorted = nodes[order]
+    is_last = torch.ones_like(n_sorted, dtype=torch.bool)
+    is_last[:-1] = n_sorted[1:] != n_sorted[:-1]
+    take = is_last & mask[order]
+    idx = torch.where(take, n_sorted, torch.full_like(n_sorted, num_nodes))
+    out = torch.zeros((num_nodes + 1, values.shape[-1]), dtype=values.dtype,
+                      device=values.device)
+    out[idx] = values[order]
+    t_out = torch.zeros(num_nodes + 1, dtype=times.dtype, device=times.device)
+    t_out[idx] = times[order]
+    touched = torch.zeros(num_nodes + 1, dtype=torch.bool,
+                          device=nodes.device)
+    touched[idx] = True
+    return out[:num_nodes], t_out[:num_nodes], touched[:num_nodes]
 
 
 def mean_per_node(nodes, values, mask, num_nodes: int):
@@ -172,3 +220,20 @@ def expand_frontiers(neighbors, nodes, t_query, n_hops: int):
         hops.append({"nodes": torch.clamp(nbr, min=0).reshape(-1),
                      "t": t.reshape(-1), "valid": valid})
     return hops
+
+
+def frontier_dedup_stats(neighbors, nodes, t_query, n_hops: int,
+                         n_nodes: int) -> dict:
+    """Dedup probe for benchmark metadata: per hop the raw expansion size,
+    the static unique budget and the distinct (node, time) keys found.
+    Ratios below 1 mean the deduplicated path does less work. A host-side
+    probe: it reads the distinct counts back to the host (a device wait
+    each), so no serve or train body calls it."""
+    hops = expand_frontiers_unique(neighbors, nodes, t_query, n_hops, n_nodes)
+    raw = [int(h["inverse"].shape[0]) for h in hops[1:]]
+    budget = [int(h["nodes"].shape[0]) for h in hops[1:]]
+    uniq = [int(h["n_unique"]) for h in hops[1:]]
+    tot = max(sum(raw), 1)
+    return {"raw_rows": raw, "budget_rows": budget, "unique_rows": uniq,
+            "budget_ratio": sum(budget) / tot,
+            "measured_ratio": sum(uniq) / tot}

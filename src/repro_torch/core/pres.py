@@ -76,16 +76,22 @@ def mixture_mean_rows(state: PresState, n_nodes: int | None = None):
 
 
 def _sample_delta(state: PresState, nodes, n_nodes, generator):
-    """One draw of delta from each node's GMM: a component by its weight
-    alpha (as jax.random.categorical over log(alpha + 1e-9)), then
-    mu + sqrt(var) * N(0, 1) of that component. The component and the
-    noise are drawn independently from `generator` (JAX draws both from
-    one key), so the draws agree with JAX's in distribution, not in bits."""
+    """One draw of delta from each node's GMM, as jax.random draws it: a
+    component by the Gumbel-max of log(alpha + 1e-9) (what
+    jax.random.categorical computes), then mu + sqrt(var) * N(0, 1) of that
+    component. The generator gives the Gumbel noise's uniforms (in [tiny,
+    1), as JAX's), then the normals, in that order and through nothing
+    else, so a draw is a function of the generator's state alone; its bits
+    are not jax.random's, its distribution is."""
     if nodes is None:
         nodes = torch.arange(n_nodes, device=state.n.device) \
             % (state.n.shape[0] - 1)
     alpha, mu, var = gmm(state.n[nodes], state.xi[nodes], state.psi[nodes])
-    comp = torch.multinomial(alpha + 1e-9, 1, generator=generator)
+    u = torch.rand(alpha.shape, generator=generator, device=alpha.device)
+    u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    comp = torch.argmax(torch.log(alpha + 1e-9) + gumbel, dim=-1,
+                        keepdim=True)
     pick = comp[:, :, None].expand(-1, 1, mu.shape[-1])
     mc = torch.gather(mu, 1, pick)[:, 0]
     vc = torch.gather(var, 1, pick)[:, 0]

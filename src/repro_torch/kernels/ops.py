@@ -15,6 +15,10 @@ There is no environment variable and no autotune cache yet. Each kernel
 module keeps an integer launch count, incremented only where it launches
 its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
 them (`reset_launch_counts` also clears `flash_attn`'s count by route).
+A CUDA graph's replay calls no wrapper: its owner takes the counters'
+change across the capture (`launch_census`, `launches_since`) and adds
+it back at every replay (`add_launches`), so the counts still say how
+many times each kernel ran.
 
 `dispatch` is the raw route. The named wrappers below it are what the
 models call: `gru_cell`, `memory_update_table`, `embed_attn`,
@@ -128,6 +132,30 @@ def dispatch(name: str, *args, mode: str | None = None, **kw):
 
 def launch_counts() -> dict[str, int]:
     return {name: spec.module.launches for name, spec in REGISTRY.items()}
+
+
+def launch_census() -> dict:
+    """Every launch counter: {kernel name: count} and {("flash_attn",
+    route): count}."""
+    census = launch_counts()
+    census.update({("flash_attn", route): n
+                   for route, n in _fa.launches_by_route.items()})
+    return census
+
+
+def launches_since(before: dict) -> dict:
+    """The counters that changed since the census `before`, by how much."""
+    return {key: n - before.get(key, 0)
+            for key, n in launch_census().items() if n != before.get(key, 0)}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add `times` x `delta` (a `launches_since` result) to the counters."""
+    for key, n in delta.items():
+        if isinstance(key, tuple):
+            _fa.launches_by_route[key[1]] += n * times
+        else:
+            REGISTRY[key].module.launches += n * times
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,20 @@
 """Online MDGNN serving CLI (counterpart of `repro/launch/serve.py`).
 
-Builds a ServeEngine with random parameters from `--seed` and drives it
-with the Poisson arrival-clock replay over the stream's serving tail,
-reporting p50/p99 ingest and query latency, events/sec and the online AP:
+Builds a ServeEngine, from a training checkpoint when `--checkpoint` is
+given (the train CLI's `--checkpoint` bundle, or the JAX package's; the
+model flags must match the training run's), else with random parameters
+from `--seed`, and drives it with the Poisson arrival-clock replay over
+the stream's serving tail, reporting p50/p99 ingest and query latency,
+events/sec and the online AP:
 
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
+        --pres --use-kernels --checkpoint /tmp/wiki.ckpt
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset wiki-small \
-        --model tgn --pres --use-kernels
+        --pres --use-kernels --checkpoint /tmp/wiki.ckpt
+
+On the card the engine captures its bodies as CUDA graphs per bucket
+(`serve/engine.py`: query and top-k always, the fold where it has no host
+sync).
 
 `--model apan` serves APAN (mailbox attention through `neighbor_attn`),
 `--model jodie` JODIE (its time projection; the memory stage and top-k
@@ -39,7 +48,6 @@ from repro_torch.serve import MicroBatcher, ServeEngine, replay
 
 # flag -> the ROADMAP item that ports it
 _NOT_YET = {
-    "checkpoint": "Queue 1 item 10 (checkpoint/io.py)",
     "event_store": "Queue 1 item 17 (event store)",
     "trace_dir": "Queue 1 item 14 (obs/trace.py)",
     "metrics_out": "Queue 1 item 14 (obs/sink.py)",
@@ -63,12 +71,19 @@ def serve_mdgnn(args):
                       use_kernels=args.use_kernels,
                       kernels_mode=args.kernels_mode)
     _, serve_s = stream.train_serve_split(args.serve_frac)
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
-                         device)
-    engine = ServeEngine(cfg, params, init_state(cfg, device),
-                         batcher=MicroBatcher(d_edge=stream.feat_dim),
-                         item_range=dst_range, device=device)
-    origin = "untrained params (checkpoints are not ported yet)"
+    batcher = MicroBatcher(d_edge=stream.feat_dim)
+    if args.checkpoint:
+        engine = ServeEngine.from_checkpoint(
+            args.checkpoint, cfg, seed=args.seed, device=device,
+            batcher=batcher, item_range=dst_range)
+        origin = f"checkpoint {args.checkpoint}"
+    else:
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             device)
+        engine = ServeEngine(cfg, params, init_state(cfg, device),
+                             batcher=batcher, item_range=dst_range,
+                             device=device)
+        origin = "untrained params (pass --checkpoint for a trained model)"
     kops.reset_launch_counts()
     tick = args.batch_size / args.rate
     report = replay(engine, serve_s, dst_range, rate=args.rate, tick=tick,
@@ -179,7 +194,8 @@ def main(argv=None):
                     help="auto: kernels on CUDA, plain versions on the CPU; "
                          "oracle pins the plain versions; interpret raises")
     ap.add_argument("--checkpoint", default=None,
-                    help="not ported yet (raises)")
+                    help="restore the engine from this training checkpoint "
+                         "(the model flags must match)")
     ap.add_argument("--metrics-out", default=None,
                     help="not ported yet (raises)")
     ap.add_argument("--trace-dir", default=None,

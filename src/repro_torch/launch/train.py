@@ -6,10 +6,14 @@ dense embedding expansion, and `--pipeline-depth N` (N >= 1) for the
 staleness-aware pipelined schedule, whose batches are carved on a prefetch
 thread. `--use-kernels` runs the CUDA kernels; without it the step takes
 the reference's plain route, which launches none, as the JAX CLI runs
-without Pallas kernels.
+without Pallas kernels. `--csv PATH` trains on a file of the public JODIE
+format (`events.load_jodie_csv`) instead of `--dataset`; `--checkpoint
+PATH` saves the {"params", "state"} bundle after the last epoch, in the
+JAX package's file format (`checkpoint/io.py`), for the serve CLI's
+`--checkpoint` (or the JAX package's) to restore.
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
-        --model tgn --pres --use-kernels
+        --model tgn --pres --use-kernels --checkpoint /tmp/wiki.ckpt
 
 Each epoch trains over the chronological train split, then evaluates on
 the validation split from the trained state, and prints loss, train AP,
@@ -29,9 +33,12 @@ import json
 
 import torch
 
+from repro_torch import bridge
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.graph import datasets
 from repro_torch.graph.datasets import SPECS
+from repro_torch.graph.events import load_jodie_csv
 from repro_torch.kernels import ops as kops
 from repro_torch.models.mdgnn import (MDGNNConfig, check_supported,
                                       init_params, init_state)
@@ -40,12 +47,10 @@ from repro_torch.train import loop, pipeline
 
 # flag -> the ROADMAP item that ports it
 _NOT_YET = {
-    "csv": "Queue 1 item 10 (JODIE csv loading)",
     "event_store": "Queue 1 item 17 (event store)",
     "scan_chunk": "Queue 1 item 15 (scan macro-batches)",
     "n_shards": "Queue 1 item 18 (memory parallelism)",
     "shard_budget": "Queue 1 item 18 (memory parallelism)",
-    "checkpoint": "Queue 1 item 10 (checkpoint/io.py)",
     "metrics_out": "Queue 1 item 14 (obs/sink.py)",
     "trace_dir": "Queue 1 item 14 (obs/trace.py)",
 }
@@ -56,7 +61,8 @@ _OFF = {"scan_chunk": 1, "n_shards": 1}
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="wiki-small", choices=list(SPECS))
-    ap.add_argument("--csv", default=None, help="not ported yet (raises)")
+    ap.add_argument("--csv", default=None,
+                    help="path to a JODIE-format csv (in place of --dataset)")
     ap.add_argument("--event-store", default=None,
                     help="not ported yet (raises)")
     ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
@@ -106,7 +112,8 @@ def main(argv=None):
     ap.add_argument("--shard-budget", type=int, default=None,
                     help="not ported yet (raises)")
     ap.add_argument("--checkpoint", default=None,
-                    help="not ported yet (raises)")
+                    help="save the {params, state} bundle here after the "
+                         "last epoch")
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--metrics-out", default=None,
                     help="not ported yet (raises)")
@@ -122,9 +129,13 @@ def main(argv=None):
                 f"{item} ports it")
 
     device = resolve_device(args.device)
-    spec = SPECS[args.dataset]
-    stream = datasets.get_dataset(args.dataset, args.seed)
-    dst_range = (spec.n_users, spec.n_users + spec.n_items)
+    if args.csv:
+        stream = load_jodie_csv(args.csv)
+        dst_range = (0, stream.num_nodes)
+    else:
+        spec = SPECS[args.dataset]
+        stream = datasets.get_dataset(args.dataset, args.seed)
+        dst_range = (spec.n_users, spec.n_users + spec.n_items)
     train_s, val_s, _ = stream.chronological_split()
     cfg = MDGNNConfig(
         variant=args.model, n_nodes=stream.num_nodes, d_edge=stream.feat_dim,
@@ -158,7 +169,7 @@ def main(argv=None):
         print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
               f"default={kops.resolve_mode('auto', device)}")
     print(f"[train] {args.model}{'-PRES' if args.pres else ''} on "
-          f"{args.dataset}: {len(train_s)} events, "
+          f"{args.csv or args.dataset}: {len(train_s)} events, "
           f"K={train_s.num_batches(args.batch_size)} batches of "
           f"b={args.batch_size}"
           + (f", pipeline_depth={depth}" if depth else ""))
@@ -174,6 +185,9 @@ def main(argv=None):
                         "val_auc": vauc})
         print(f"  epoch {epoch}: loss={res.loss:.4f} train_ap={res.ap:.4f} "
               f"val_ap={vap:.4f} val_auc={vauc:.4f} ({res.seconds:.1f}s)")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, bridge.mdgnn_bundle(params, state))
+        print(f"[ckpt] saved to {args.checkpoint}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump({"config": dataclasses.asdict(cfg), "history": history},

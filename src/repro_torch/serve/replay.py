@@ -5,7 +5,9 @@ score-then-fold per service tick.
 Each tick samples positive queries from its not-yet-folded events, pairs
 them with corrupted-destination negatives, scores both, then ingests the
 tick's events. Every engine call is timed to a device sync, so p50/p99 are
-end-to-end serving latencies and events/sec is synchronous throughput."""
+end-to-end serving latencies and events/sec is synchronous throughput.
+`post_warmup_traces` lists the keys the engine prepared during the replay
+(on CUDA: captured a graph for), which a warmed-up engine never does."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +35,10 @@ class ReplayReport:
     query_p99_ms: float
     online_ap: float         # AP over the sampled (pos, neg) query pairs
     sim_seconds: float       # simulated arrival-clock span
+    # keys the engine prepared DURING the replay (after warm-up), as
+    # {(kind, bucket[, k]): count}: non-empty means a live request paid a
+    # capture and the percentiles above include it
+    post_warmup_traces: dict = dataclasses.field(default_factory=dict)
 
 
 def _pctl(xs, q):
@@ -63,6 +69,7 @@ def replay(engine: ServeEngine, stream: EventStream, dst_range, *,
 
     if warmup:
         engine.warmup(query=True)
+    warm_traces = dict(engine.trace_counts)
 
     ingest_times, query_times = [], []
     pos_scores, neg_scores = [], []
@@ -106,4 +113,8 @@ def replay(engine: ServeEngine, stream: EventStream, dst_range, *,
         ingest_p99_ms=_pctl(ingest_times, 99),
         query_p50_ms=_pctl(query_times, 50),
         query_p99_ms=_pctl(query_times, 99),
-        online_ap=ap, sim_seconds=float(arrival[-1]))
+        online_ap=ap, sim_seconds=float(arrival[-1]),
+        post_warmup_traces={
+            k: c - warm_traces.get(k, 0)
+            for k, c in engine.trace_counts.items()
+            if c > warm_traces.get(k, 0)})

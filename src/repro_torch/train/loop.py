@@ -341,7 +341,9 @@ def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
              dst_range, negatives=None):
     """Evaluation pass on a copy of `state` (the caller's state is left as
     it was, as with the JAX version's functional state). Returns
-    (final eval state, AP, AUC)."""
+    (final eval state, AP, AUC). A split of one batch scores no pair (the
+    lag-one pass folds it and stops): AP and AUC are then nan, where the
+    JAX version raises (a short csv's validation split)."""
     state = mdgnn.clone_state(state)
     pos_all, neg_all = [], []
     negs = None if negatives is None else iter(negatives)
@@ -353,5 +355,7 @@ def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
         pos_all.append(lp)
         neg_all.append(ln)
         prev_batch = batch
+    if not pos_all:
+        return state, float("nan"), float("nan")
     pos, neg, ap = _logits_ap(pos_all, neg_all)
     return state, ap, metrics_lib.roc_auc(pos, neg)

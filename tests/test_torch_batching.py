@@ -181,3 +181,72 @@ def test_update_trackers_matches_jax():
     np.testing.assert_allclose(
         tpres.mixture_mean(got, ids).numpy(),
         np.asarray(jpres.mixture_mean(want, nodes)), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# pending sets, the last-message reduction and the dedup probe
+# ---------------------------------------------------------------------------
+
+
+def _pending_inputs(seed, b=48, n=12):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, b).astype(np.int32)
+    dst = rng.integers(0, n, b).astype(np.int32)
+    t = rng.integers(0, 10, b).astype(np.float32)     # many equal times
+    mask = rng.random(b) < 0.8
+    return src, dst, t, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pending_counts_matches_jax(masked):
+    src, dst, t, mask = _pending_inputs(7)
+    m = mask if masked else None
+    want = jb.pending_counts(jnp.asarray(src), jnp.asarray(dst),
+                             jnp.asarray(t),
+                             None if m is None else jnp.asarray(m))
+    got = tb.pending_counts(torch.as_tensor(src).long(),
+                            torch.as_tensor(dst).long(), torch.as_tensor(t),
+                            None if m is None else torch.as_tensor(m))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [8, 9])
+def test_pending_fraction_matches_jax(seed):
+    jbatch, tbatch = _batch_pair(*_pending_inputs(seed))
+    assert tb.pending_fraction(tbatch) == jb.pending_fraction(jbatch)
+
+
+@pytest.mark.parametrize("seed", [10, 11])
+def test_last_per_node_matches_jax(seed):
+    """Ties of time within a node, masked latest rows and nodes with only
+    masked rows: the taken row, its time and the touched flags exact."""
+    rng = np.random.default_rng(seed)
+    m, n, d = 60, 15, 3
+    nodes = rng.integers(0, n, m).astype(np.int32)
+    times = rng.integers(0, 6, m).astype(np.float32)
+    values = rng.normal(size=(m, d)).astype(np.float32)
+    mask = rng.random(m) < 0.7
+    want = jb.last_per_node(jnp.asarray(nodes), jnp.asarray(times),
+                            jnp.asarray(values), jnp.asarray(mask), n)
+    got = tb.last_per_node(torch.as_tensor(nodes).long(),
+                           torch.as_tensor(times), torch.as_tensor(values),
+                           torch.as_tensor(mask), n)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n_hops", [1, 2])
+def test_frontier_dedup_stats_matches_jax(tiny_stream, n_hops):
+    n, k = tiny_stream.num_nodes, 4
+    s, d, t = tiny_stream.src[:200], tiny_stream.dst[:200], tiny_stream.t[:200]
+    jbatch, tbatch = _batch_pair(s, d, t, np.ones(200, bool))
+    jnb = jb.update_neighbors(jb.init_neighbors(n, k), jbatch)
+    tnb = tb.init_neighbors(n, k, "cpu")
+    tb.update_neighbors(tnb, tbatch)
+    seeds = np.concatenate([s[:16], d[:16]]).astype(np.int32)
+    tq = np.concatenate([t[:16], t[:16]]).astype(np.float32) + 1.0
+    want = jb.frontier_dedup_stats(jnb, jnp.asarray(seeds), jnp.asarray(tq),
+                                   n_hops, n)
+    got = tb.frontier_dedup_stats(tnb, torch.as_tensor(seeds).long(),
+                                  torch.as_tensor(tq), n_hops, n)
+    assert got == want

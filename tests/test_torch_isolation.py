@@ -1,7 +1,8 @@
 """The port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports JAX or the JAX package, the serving, training and
-model zoo modules import with JAX blocked, and an entry point given no
-device on a machine without CUDA raises instead of running on the CPU."""
+`chip_smoke.py` imports JAX, the JAX package or msgpack (the card's
+machine has none of them), the serving, training, checkpoint and model
+zoo modules import with them blocked, and an entry point given no device
+on a machine without CUDA raises instead of running on the CPU."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
@@ -52,6 +53,29 @@ def test_serving_imports_with_jax_blocked():
             "import repro_torch.train.pipeline, repro_torch.models.embeddings\n"
             "import repro_torch.archs.api, repro_torch.nn.attention\n"
             "import repro_torch.nn.xlstm, repro_torch.configs\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_main_path_imports_with_jax_and_msgpack_blocked():
+    """The modules of the train -> checkpoint -> serve path import, and a
+    checkpoint round-trips, with JAX and msgpack blocked."""
+    code = ("import sys, tempfile, os\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
+            "    sys.modules[name] = None\n"
+            "import repro_torch.checkpoint.io as io\n"
+            "import repro_torch.serve.parity, repro_torch.configs.tgn_pres\n"
+            "import repro_torch.launch.train, repro_torch.launch.serve\n"
+            "import numpy as np\n"
+            "path = os.path.join(tempfile.mkdtemp(), 'a.ckpt')\n"
+            "io.save_checkpoint(path, {'a': np.arange(3), 'b': {'c': 1.0}})\n"
+            "got = io.read_checkpoint(path, {'a': np.zeros(3, np.int64),\n"
+            "                                'b': {'c': np.float64(0)}})\n"
+            "assert got['a'].tolist() == [0, 1, 2] and got['b']['c'] == 1.0\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -247,6 +247,31 @@ def test_sampled_predict_matches_gmm_distribution():
                         ).all(), side
 
 
+def test_sampled_predict_is_a_function_of_the_generator():
+    """Two draws from generators of one seed are bit for bit equal (JAX's
+    draw is a pure function of its key), over two 5,000-row blocks of the
+    distribution test's trackers; another seed gives other draws."""
+    n_draws, d = 10_000, 3
+    rng = np.random.default_rng(5)
+    cnt, xi, psi = _trackers(rng, 2, d)
+    cnt[:, 0] += 1.0                    # both rows hold some events
+    _, tstate = _both(cnt, xi, psi)
+    nodes = torch.tensor(np.repeat(np.arange(2), n_draws // 2))
+    s_prev = torch.tensor(rng.normal(size=(n_draws, d)).astype(np.float32))
+    dt = torch.ones(n_draws)
+    draw = lambda seed: tpres.predict(
+        tstate, s_prev, dt, nodes, clip=100.0,
+        generator=torch.Generator().manual_seed(seed))
+    first = draw(11)
+    for _ in range(3):
+        again = draw(11)
+        diff = (again - first).abs().max(dim=1).values
+        assert torch.equal(again, first), (
+            f"{int((diff > 0).sum())} rows differ, by up to "
+            f"{float(diff.max()):.3g}")
+    assert not torch.equal(draw(12), first)
+
+
 # ---------------------------------------------------------------------------
 # coherence and theory
 # ---------------------------------------------------------------------------
