@@ -1,2 +1,2 @@
 """The model zoo's architectures (counterpart of `repro/archs/`): the
-dense decoder family and xLSTM so far."""
+dense decoder family (and the VLM on it), xLSTM and zamba2."""

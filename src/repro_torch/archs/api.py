@@ -3,18 +3,18 @@
 NotImplementedError naming the ROADMAP item that ports them."""
 from __future__ import annotations
 
-from repro_torch.archs import dense, xlstm_arch
+from repro_torch.archs import dense, xlstm_arch, zamba
 from repro_torch.archs.base import Model, ModelConfig
 
 _BUILDERS = {
     "dense": dense.build,
+    "vlm": dense.build,
     "ssm": xlstm_arch.build,
+    "hybrid": zamba.build,
 }
 
 NOT_PORTED = {
     "moe": "Queue 1 item 19 (zoo: MoE, nn/moe.py, archs/moe_arch.py)",
-    "vlm": "Queue 1 item 19 (zoo: VLM, apply_mrope)",
-    "hybrid": "Queue 1 item 19 (zoo: zamba2, mamba2, archs/zamba.py)",
     "audio": "Queue 1 item 19 (zoo: whisper, cross_attention, layernorm)",
 }
 

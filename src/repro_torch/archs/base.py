@@ -3,7 +3,8 @@
 
 Every architecture exposes a `Model`:
     init(gen, device=None)       -> params (nested dict of tensors)
-    forward(params, batch)       -> logits (B, S, V)   [prefill math]
+    forward(params, batch)       -> logits (B, S, V)   [training math]
+    prefill(params, batch)       -> logits (B, V)      [the last position]
     init_decode_state(batch_size, cache_len, device=None) -> state
     decode_step(params, state, tokens, pos) -> (logits, state)
     loss_fn                      -> raises: zoo training is a later slice
@@ -21,10 +22,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.nn import layers
 from repro_torch.nn.module import ParamBuilder, unstack
+from repro_torch.utils.tree import tree_map
 
 
 # The fields the ported archs read; those that only unported archs read
-# (MoE, Mamba2, whisper, remat, ...) join with the slice that ports them.
+# (MoE, whisper, remat, ...) join with the slice that ports them.
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
@@ -48,9 +50,13 @@ class ModelConfig:
     # sequences (None = dense). Engaged when S >= 2*attn_chunk and
     # S % attn_chunk == 0; the kernel's tiles do not depend on it.
     attn_chunk: int | None = 2048
-    # xLSTM
-    slstm_every: int = 0                # every Nth layer is sLSTM
-    # vlm (not ported: a dense config that sets these raises)
+    # SSM / xLSTM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    mamba_expand: int = 2
+    slstm_every: int = 0                # xLSTM: every Nth layer is sLSTM
+    attn_every: int = 0                 # zamba2: shared attn after every Nth block
+    # vlm
     num_patches: int = 0
     mrope_sections: tuple[int, ...] | None = None
     # runtime
@@ -84,9 +90,17 @@ class ModelConfig:
             global_every=2 if self.global_every else 0,
             window=min(self.window, 64) if self.window else None,
             slstm_every=2 if self.slstm_every else 0,
+            attn_every=2 if self.attn_every else 0,
+            num_patches=8 if self.num_patches else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
             dtype=torch.float32,
             scan_layers=False,
         )
+        if self.mrope_sections:
+            hd = d_model // n_heads
+            s0 = hd // 2 - 2 * (hd // 6)
+            upd["mrope_sections"] = (s0, hd // 6, hd // 6)
         upd.update(kw)
         return dataclasses.replace(self, **upd)
 
@@ -102,9 +116,11 @@ class Model:
     cfg: ModelConfig
     init: Callable
     forward: Callable
+    prefill: Callable
     loss_fn: Callable = _no_loss
     init_decode_state: Callable | None = None
     decode_step: Callable | None = None
+    extra_inputs: Callable | None = None  # shapes of aux inputs (vlm)
     encode: Callable | None = None        # enc-dec only (whisper: not ported)
 
 
@@ -128,6 +144,27 @@ def builder(cfg: ModelConfig, gen: torch.Generator | None, device):
         raise ValueError(f"the generator is on {gen.device}, the parameters "
                          f"go to {dev}")
     return ParamBuilder(gen, cfg.param_dtype)
+
+
+def unit_params(cfg: ModelConfig, gen: torch.Generator, n_units: int,
+                init_unit, stacked: bool) -> dict:
+    """The `blocks` tree: `n_units` unit trees drawn in turn from `gen` by
+    `init_unit(ParamBuilder)`, as {"u{i}": tree}, or (`stacked`) stacked
+    on a leading unit dim, each unit copied into the stack as it is drawn
+    so that memory holds one unit beside the stack (gemma3-12b's 47 GB of
+    float32 parameters would not fit twice on an 80 GB card)."""
+    out, stack = {}, None
+    for i in range(n_units):
+        ub = ParamBuilder(gen, cfg.param_dtype)
+        init_unit(ub)
+        if not stacked:
+            out[f"u{i}"] = ub.params
+            continue
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((n_units,) + x.shape),
+                             ub.params)
+        tree_map(lambda st, x: st[i].copy_(x), stack, ub.params)
+    return stack if stacked else out
 
 
 def make_embedding(b: ParamBuilder, cfg: ModelConfig):
@@ -154,6 +191,20 @@ def lm_logits(params, cfg: ModelConfig, x):
     if padded_vocab(cfg) != cfg.vocab:
         logits = logits[..., : cfg.vocab]
     return logits
+
+
+def heads(cfg: ModelConfig, trunk):
+    """(forward, prefill) over `trunk(params, batch) -> (B, S, d)`: the
+    logits of every position, and of the last one only (JAX's
+    `make_prefill_spec` takes `forward(...)[:, -1]`; rmsnorm is per row,
+    so the two agree up to the unembedding's summation order)."""
+    def forward(params, batch):
+        return lm_logits(params, cfg, trunk(params, batch))
+
+    def prefill(params, batch):
+        return lm_logits(params, cfg, trunk(params, batch)[:, -1])
+
+    return forward, prefill
 
 
 def run_blocks(block_fn, params_list, x):

@@ -1,7 +1,7 @@
 """Dense decoder-only family (counterpart of `repro/archs/dense.py`):
-qwen3 (qk-norm, GQA) and any config of the same shape, with sliding-window
-layers (`window`, `global_every`). The VLM variant (qwen2-vl: patch
-embeddings, M-RoPE) raises: it waits for ROADMAP Queue 1 item 19."""
+gemma3 (5:1 sliding-window:global), command-r, qwen2 (QKV bias), qwen3
+(qk-norm) and the VLM qwen2-vl (M-RoPE; the vision encoder stubbed to
+precomputed patch embeddings, prepended to the text)."""
 from __future__ import annotations
 
 import torch
@@ -29,12 +29,14 @@ def _init_block(b: ParamBuilder, cfg: ModelConfig):
     layers.mlp_init(b, "mlp", cfg.d_model, cfg.d_ff, gated=True)
 
 
-def _block_apply(cfg: ModelConfig, kind: str, p, x, positions):
+def _block_apply(cfg: ModelConfig, kind: str, p, x, positions,
+                 mrope_positions):
     h = layers.rmsnorm(p["ln_attn"], x)
     window = cfg.window if kind == "local" else None
     h = attn_lib.attention(
         p["attn"], h, positions, d_head=cfg.head_dim, causal=True,
         window=window, rope_theta=cfg.rope_theta,
+        mrope_sections=cfg.mrope_sections, mrope_positions=mrope_positions,
         softmax_scale_cap=cfg.attn_softcap, chunk=cfg.attn_chunk,
         mode=cfg.kernels_mode)
     x = x + h
@@ -43,10 +45,6 @@ def _block_apply(cfg: ModelConfig, kind: str, p, x, positions):
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.num_patches or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the VLM variant (patch embeddings, M-RoPE) is "
-            f"not ported yet (ROADMAP Queue 1 item 19: VLM, apply_mrope)")
     unit = unit_pattern(cfg)
     n_units = cfg.n_layers // len(unit)
     if n_units * len(unit) != cfg.n_layers:
@@ -56,28 +54,42 @@ def build(cfg: ModelConfig) -> Model:
     def init(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
-        trees = []
-        for _ in range(n_units):
-            ub = ParamBuilder(b.gen, cfg.param_dtype)
+
+        def init_unit(ub):
             for j in range(len(unit)):
                 _init_block(ub.sub(f"b{j}"), cfg)
-            trees.append(ub.params)
-        b.params["blocks"] = (stack_params(trees) if cfg.scan_layers else
-                              {f"u{i}": p for i, p in enumerate(trees)})
+
+        b.params["blocks"] = base.unit_params(cfg, b.gen, n_units, init_unit,
+                                              cfg.scan_layers)
         return b.params
 
-    def _unit_apply(p, x, positions):
+    def _unit_apply(p, x, positions, mrope_positions):
         for j, kind in enumerate(unit):
-            x = _block_apply(cfg, kind, p[f"b{j}"], x, positions)
+            x = _block_apply(cfg, kind, p[f"b{j}"], x, positions,
+                             mrope_positions)
         return x
 
-    def forward(params, batch):
+    def trunk(params, batch):
+        """The last layer's output at the text positions (B, S, d)."""
         x = base.embed_tokens(params, cfg, batch["tokens"])
+        mrope_positions = None
+        if cfg.num_patches:
+            # VLM stub: precomputed patch embeddings prepended to the text
+            patches = batch["patch_embeds"].to(cfg.dtype)
+            x = torch.cat([patches, x], dim=1)
+            mrope_positions = batch["mrope_positions"]      # (B, 3, S_total)
         b_, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b_, s)
-        x = base.run_blocks(lambda p, h: _unit_apply(p, h, positions),
-                            base.units(params["blocks"], cfg, n_units), x)
-        return base.lm_logits(params, cfg, x)
+        if cfg.mrope_sections and mrope_positions is None:
+            # text-only M-RoPE: the temporal, height and width coordinates
+            # all advance with the token index (Qwen2-VL Sec. 3.1)
+            mrope_positions = positions[:, None].expand(b_, 3, s)
+        x = base.run_blocks(
+            lambda p, h: _unit_apply(p, h, positions, mrope_positions),
+            base.units(params["blocks"], cfg, n_units), x)
+        return x[:, cfg.num_patches:] if cfg.num_patches else x
+
+    forward, prefill = base.heads(cfg, trunk)
 
     def init_decode_state(batch_size: int, cache_len: int, device=None):
         dev = resolve_device(device)
@@ -96,7 +108,7 @@ def build(cfg: ModelConfig) -> Model:
             return stack_params([unit_cache() for _ in range(n_units)])
         return {f"u{i}": unit_cache() for i in range(n_units)}
 
-    def _unit_decode(p, x, cache, pos):
+    def _unit_decode(p, x, cache, pos, mrope_pos):
         for j, kind in enumerate(unit):
             h = layers.rmsnorm(p[f"b{j}"]["ln_attn"], x)
             window = cfg.window if kind == "local" else None
@@ -104,6 +116,7 @@ def build(cfg: ModelConfig) -> Model:
                 p[f"b{j}"]["attn"], h, cache[f"b{j}"], pos,
                 d_head=cfg.head_dim, window=window,
                 rope_theta=cfg.rope_theta,
+                mrope_sections=cfg.mrope_sections, mrope_positions=mrope_pos,
                 softmax_scale_cap=cfg.attn_softcap)
             x = x + h
             h = layers.rmsnorm(p[f"b{j}"]["ln_mlp"], x)
@@ -114,12 +127,29 @@ def build(cfg: ModelConfig) -> Model:
         """tokens (B, 1) at position `pos`; the caches in `state` are
         written in place. Returns (logits (B, 1, V), state)."""
         x = base.embed_tokens(params, cfg, tokens)          # (B, 1, d)
+        mrope_pos = None
+        if cfg.mrope_sections:
+            # every coordinate at the token's position, as in JAX
+            mrope_pos = torch.full((x.shape[0], 3, 1), int(pos),
+                                   dtype=torch.int32, device=x.device)
         blocks = base.units(params["blocks"], cfg, n_units)
         for i in range(n_units):
             cache = (unstack(state, i) if cfg.scan_layers
                      else state[f"u{i}"])
-            x = _unit_decode(blocks[i], x, cache, pos)
+            x = _unit_decode(blocks[i], x, cache, pos, mrope_pos)
         return base.lm_logits(params, cfg, x), state
 
-    return Model(cfg=cfg, init=init, forward=forward,
-                 init_decode_state=init_decode_state, decode_step=decode_step)
+    def extra_inputs(batch_size: int, seq_len: int):
+        """The VLM's batch entries beside the tokens, as name -> (shape,
+        dtype): the patch embeddings and the M-RoPE positions of the
+        patches and the text."""
+        if not cfg.num_patches:
+            return {}
+        s_total = cfg.num_patches + seq_len
+        return {"patch_embeds": ((batch_size, cfg.num_patches, cfg.d_model),
+                                 cfg.dtype),
+                "mrope_positions": ((batch_size, 3, s_total), torch.int32)}
+
+    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
+                 init_decode_state=init_decode_state, decode_step=decode_step,
+                 extra_inputs=extra_inputs)

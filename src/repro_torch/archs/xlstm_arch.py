@@ -10,7 +10,7 @@ from repro_torch.archs import base
 from repro_torch.archs.base import Model, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn import layers, xlstm
-from repro_torch.nn.module import ParamBuilder, stack_params, unstack
+from repro_torch.nn.module import stack_params, unstack
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -26,9 +26,8 @@ def build(cfg: ModelConfig) -> Model:
     def init(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
-        trees = []
-        for _ in range(n_units):
-            ub = ParamBuilder(b.gen, cfg.param_dtype)
+
+        def init_unit(ub):
             for j, kind in enumerate(unit):
                 blk = ub.sub(f"b{j}")
                 layers.rmsnorm_init(blk, "ln", cfg.d_model)
@@ -37,9 +36,9 @@ def build(cfg: ModelConfig) -> Model:
                 else:
                     xlstm.slstm_init(blk, "cell", cfg.d_model,
                                      cfg.n_kv_heads)
-            trees.append(ub.params)
-        b.params["blocks"] = (stack_params(trees) if cfg.scan_layers else
-                              {f"u{i}": p for i, p in enumerate(trees)})
+
+        b.params["blocks"] = base.unit_params(cfg, b.gen, n_units, init_unit,
+                                              cfg.scan_layers)
         return b.params
 
     def _unit_apply(p, x):
@@ -54,11 +53,12 @@ def build(cfg: ModelConfig) -> Model:
             x = x + h
         return x
 
-    def forward(params, batch):
+    def trunk(params, batch):
         x = base.embed_tokens(params, cfg, batch["tokens"])
-        x = base.run_blocks(_unit_apply,
-                            base.units(params["blocks"], cfg, n_units), x)
-        return base.lm_logits(params, cfg, x)
+        return base.run_blocks(_unit_apply,
+                               base.units(params["blocks"], cfg, n_units), x)
+
+    forward, prefill = base.heads(cfg, trunk)
 
     def _unit_state(batch_size, dev):
         st = {}
@@ -107,5 +107,5 @@ def build(cfg: ModelConfig) -> Model:
                      else {f"u{i}": s for i, s in enumerate(news)})
         return base.lm_logits(params, cfg, x), new_state
 
-    return Model(cfg=cfg, init=init, forward=forward,
+    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
                  init_decode_state=init_decode_state, decode_step=decode_step)

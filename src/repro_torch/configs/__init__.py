@@ -12,7 +12,12 @@ import importlib
 
 ARCH_MODULES = {
     "xlstm-350m": "xlstm_350m",
+    "gemma3-12b": "gemma3_12b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen2-7b": "qwen2_7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "zamba2-1.2b": "zamba2_1_2b",
     "tgn-pres": "tgn_pres",
 }
 
@@ -21,14 +26,8 @@ NOT_PORTED = {
     "arctic-480b": "Queue 1 item 19 (zoo: MoE, nn/moe.py, archs/moe_arch.py)",
     "kimi-k2-1t-a32b": "Queue 1 item 19 (zoo: MoE, nn/moe.py, "
                        "archs/moe_arch.py)",
-    "gemma3-12b": "Queue 1 item 19 (zoo: dense configs beyond qwen3-0.6b)",
-    "command-r-plus-104b": "Queue 1 item 19 (zoo: dense configs beyond "
-                           "qwen3-0.6b)",
-    "qwen2-7b": "Queue 1 item 19 (zoo: dense configs beyond qwen3-0.6b)",
-    "qwen2-vl-2b": "Queue 1 item 19 (zoo: VLM, apply_mrope)",
     "whisper-tiny": "Queue 1 item 19 (zoo: whisper, cross_attention, "
                     "layernorm)",
-    "zamba2-1.2b": "Queue 1 item 19 (zoo: zamba2, mamba2, archs/zamba.py)",
 }
 
 ARCH_IDS = [a for a in ARCH_MODULES if a != "tgn-pres"]

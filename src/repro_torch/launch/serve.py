@@ -23,10 +23,12 @@ reference's plain route and launches no kernel, as the JAX CLI runs
 without Pallas kernels. `--zoo <arch> --steps N` runs
 the model zoo's greedy decode loop instead (a ported arch's reduced
 config, batch 2, a 128-slot cache), as the JAX CLI does; decode runs no
-kernel (the zoo's kernels run in the prefill, `Model.forward`):
+kernel (the zoo's kernels run in the prefill, `Model.prefill`):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --zoo qwen3-0.6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --zoo zamba2-1.2b \
         --steps 16
+
+The ported archs are `configs.ARCH_IDS`; whisper, arctic and kimi raise.
 
 It keeps the JAX CLI's flags. Flags this port cannot honour yet raise
 NotImplementedError naming the ROADMAP item that ports them, and so does
@@ -205,7 +207,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--zoo", default=None,
                     help="run the model zoo's decode loop for this arch "
-                         "(qwen3-0.6b or xlstm-350m; the others raise)")
+                         "(one of configs.ARCH_IDS; the others raise)")
     ap.add_argument("--steps", type=int, default=16,
                     help="decode steps of --zoo")
     ap.add_argument("--device", default=None,

@@ -1,12 +1,12 @@
-"""GQA attention with RoPE, qk-norm, QKV bias, sliding windows and KV-cache
-single-token decode (counterpart of `repro/nn/attention.py`).
+"""GQA attention with RoPE / M-RoPE, qk-norm, QKV bias, sliding windows
+and KV-cache single-token decode (counterpart of `repro/nn/attention.py`).
 
 Projection weights are 2-D with a fused (n_heads * d_head) output dim, as
 in JAX; activations are reshaped to (B, S, H, D) inside. The long-prefill
 branch, `blockwise_attention`, runs the `flash_attn` kernel
 (`kernels/flash_attn.py`); the JAX package's lax version of it is the
-function whose on-chip form that kernel is. M-RoPE (VLM) and cross
-attention (whisper) wait for their archs (ROADMAP Queue 1 item 19)."""
+function whose on-chip form that kernel is. Cross attention (whisper)
+waits for its arch (ROADMAP Queue 1 item 19)."""
 from __future__ import annotations
 
 import math
@@ -36,6 +36,28 @@ def apply_rope(x, positions, theta: float = 10000.0):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
     angles = positions[..., None].float() * freqs          # (B, S, d/2)
+    return _rotate(x, angles)
+
+
+def apply_mrope(x, positions, sections, theta: float = 10000.0):
+    """Multimodal RoPE (Qwen2-VL). x: (B, S, H, D); positions: (B, 3, S)
+    for (t, h, w); sections: the frequency bands each coordinate turns,
+    in order, summing to D / 2."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                   # (d/2,)
+    angles_all = positions[..., None].float() * freqs       # (B, 3, S, d/2)
+    parts, start = [], 0
+    for m, sec in enumerate(sections):
+        parts.append(angles_all[:, m, :, start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))           # (B, S, d/2)
+
+
+def _rotate(x, angles):
+    """x's two halves turned by `angles` (B, S, D/2), in float32."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -159,13 +181,14 @@ def attention(params, x, positions, *, d_head: int, causal: bool = True,
 
     chunk: when set, S >= 2 * chunk, S % chunk == 0 and no attn_mask is
     given, the blockwise branch (the `flash_attn` kernel, routed by
-    `mode`); otherwise dense scores in float32, as in JAX."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1 item 19: VLM, "
-            "apply_mrope)")
+    `mode`); otherwise dense scores in float32, as in JAX. With
+    `mrope_sections`, q and k turn by M-RoPE at `mrope_positions`
+    (B, 3, S) in place of RoPE at `positions`."""
     q, k, v = _project_qkv(params, x, x, d_head)
-    if positions is not None and rope_theta is not None:
+    if mrope_sections is not None:
+        q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
+        k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
+    elif positions is not None and rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     s = x.shape[1]
@@ -213,21 +236,22 @@ def decode_attention(params, x, cache, pos: int, *, d_head: int,
     pos >= cache_len (the JAX version's dynamic_update_slice clamps the
     slot to the last one instead). The new k and v are written into
     `cache` IN PLACE (the JAX version returns updated copies; an
-    8,192-slot cache would be copied every step); returns (y, cache)."""
+    8,192-slot cache would be copied every step); returns (y, cache).
+    With `mrope_sections`, q and k turn by M-RoPE at `mrope_positions`
+    (B, 3, 1)."""
     b_, s, _ = x.shape
     if s != 1:
         raise ValueError(f"decode_attention takes one token, got S={s}")
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1 item 19: VLM, "
-            "apply_mrope)")
     pos = int(pos)
     cache_len = cache["k"].shape[1]
     if window is None and not 0 <= pos < cache_len:
         raise ValueError(f"decode_attention: position {pos} is outside the "
                          f"cache of a global layer (cache_len {cache_len})")
     q, k, v = _project_qkv(params, x, x, d_head)
-    if rope_theta is not None:
+    if mrope_sections is not None:
+        q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
+        k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
+    elif rope_theta is not None:
         posv = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, rope_theta)
         k = apply_rope(k, posv, rope_theta)

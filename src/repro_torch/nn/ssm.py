@@ -4,17 +4,19 @@
     H_t = a_t * H_{t-1} + k_t v_t^T          (H: N x P matrix state per head)
     y_t = q_t^T H_t
 
-which mLSTM runs (q, k, v projections; a = the forget gate). Each chunk's
+which covers Mamba2 (q = C, k = dt * B, v = x, a = exp(-exp(A_log) dt))
+and mLSTM (q, k, v projections; a = the forget gate). Each chunk's
 quadratic work is one launch of the `ssd_chunk` kernel over the
 (batch x heads) groups; the inter-chunk state is carried by a Python loop
-over the chunks (JAX's `lax.scan`). Mamba2 waits for zamba2 (ROADMAP
-Queue 1 item 19)."""
+over the chunks (JAX's `lax.scan`). The Mamba2 block (zamba2's backbone)
+is below."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.nn.module import ParamBuilder
 
 
 def chunked_linear_rnn(q, k, v, log_a, *, chunk: int = 256, init_state=None,
@@ -61,3 +63,123 @@ def linear_rnn_step(state, q, k, v, log_a):
     state = state * a + torch.einsum("bhn,bhp->bhnp", k.float(), v.float())
     y = torch.einsum("bhn,bhnp->bhp", q.float(), state)
     return state, y
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init(b: ParamBuilder, name: str, d_model: int, d_state: int, *,
+                expand: int = 2, head_dim: int = 64, conv_width: int = 4):
+    d_inner = expand * d_model
+    n_heads = d_inner // head_dim
+    sub = b.sub(name)
+    sub.add("in_proj", (d_model, 2 * d_inner + 2 * d_state + n_heads))
+    sub.add("conv_w", (conv_width, d_inner + 2 * d_state))
+    sub.add("conv_b", (d_inner + 2 * d_state,), init="zeros")
+    sub.add("A_log", (n_heads,), init="zeros")
+    sub.add("dt_bias", (n_heads,), init="zeros")
+    sub.add("D", (n_heads,), init="ones")
+    sub.add("norm_scale", (d_inner,), init="ones")
+    sub.add("out_proj", (d_inner, d_model))
+
+
+def _softplus(x):
+    """log(1 + e^x) as `jax.nn.softplus` computes it (logaddexp(x, 0));
+    F.softplus returns x itself above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (B, S, C), w: (W, C): the W shifted
+    slices weighted and summed in x's dtype, in order, then b."""
+    width = w.shape[0]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def _split(x, d_inner, d_state):
+    """in_proj's output -> (z, xBC, dt)."""
+    return torch.split(x, [d_inner, d_inner + 2 * d_state,
+                           x.shape[-1] - 2 * d_inner - 2 * d_state], dim=-1)
+
+
+def _gated_out(params, y, z, dtype):
+    """y * silu(z), the gated RMSNorm (1e-6 inside the rsqrt), out_proj."""
+    y = y.to(dtype) * F.silu(z)
+    var = torch.mean(torch.square(y.float()), dim=-1, keepdim=True)
+    y = (y.float() * torch.rsqrt(var + 1e-6)
+         * params["norm_scale"]).to(dtype)
+    return y @ params["out_proj"].to(dtype)
+
+
+def mamba2(params, x, *, d_state: int, head_dim: int = 64, chunk: int = 256,
+           init_state=None, return_state: bool = False,
+           mode: str | None = None):
+    """x: (B, S, d). Returns y (B, S, d) [and the final SSM state
+    (B, H, N, P)]; the recurrence runs through `chunked_linear_rnn`, one
+    `ssd_chunk` launch a chunk (routed by `mode`)."""
+    b_, s, _ = x.shape
+    n_heads = params["A_log"].shape[0]
+    d_inner = n_heads * head_dim
+    z, xbc, dt = _split(x @ params["in_proj"].to(x.dtype), d_inner, d_state)
+    xbc = _causal_conv(F.silu(xbc), params["conv_w"].to(x.dtype),
+                       params["conv_b"].to(x.dtype))
+    xs, b_ssm, c_ssm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+    dt = _softplus(dt.float() + params["dt_bias"])         # (B, S, H)
+    a = -torch.exp(params["A_log"].float())                 # (H,) negative
+    log_decay = a * dt                                      # log exp(a dt)
+    xh = xs.reshape(b_, s, n_heads, head_dim)
+    k = b_ssm[:, :, None, :].expand(b_, s, n_heads, d_state) * dt[..., None]
+    q = c_ssm[:, :, None, :].expand(b_, s, n_heads, d_state)
+    y, state = chunked_linear_rnn(q, k, xh, log_decay, chunk=chunk,
+                                  init_state=init_state, mode=mode)
+    y = y + params["D"].float()[None, None, :, None] * xh.float()
+    out = _gated_out(params, y.reshape(b_, s, d_inner), z, x.dtype)
+    return (out, state) if return_state else out
+
+
+def mamba2_decode_init(batch: int, params, d_state: int, head_dim: int = 64):
+    """Zero decode state on the parameters' device: the SSM state
+    (B, H, N, P) and the conv ring of the last width - 1 inputs
+    (B, W - 1, C), both float32."""
+    n_heads = params["A_log"].shape[0]
+    conv_dim = n_heads * head_dim + 2 * d_state
+    width = params["conv_w"].shape[0]
+    dev = params["A_log"].device
+    return {"ssm": torch.zeros((batch, n_heads, d_state, head_dim),
+                               dtype=torch.float32, device=dev),
+            "conv": torch.zeros((batch, width - 1, conv_dim),
+                                dtype=torch.float32, device=dev)}
+
+
+def mamba2_decode(params, x, state, *, d_state: int, head_dim: int = 64):
+    """One-token decode. x: (B, 1, d). Returns (y (B, 1, d), the new
+    state); `state` is not written."""
+    b_ = x.shape[0]
+    n_heads = params["A_log"].shape[0]
+    d_inner = n_heads * head_dim
+    z, xbc, dt = _split(x[:, 0] @ params["in_proj"].to(x.dtype), d_inner,
+                        d_state)
+    xbc = F.silu(xbc)
+    # the conv over the ring of previous inputs
+    hist = torch.cat([state["conv"], xbc[:, None].float()], dim=1)
+    conv_out = (torch.einsum("bwc,wc->bc", hist, params["conv_w"].float())
+                + params["conv_b"])
+    xs, b_ssm, c_ssm = torch.split(conv_out.to(x.dtype),
+                                   [d_inner, d_state, d_state], dim=-1)
+    dt = _softplus(dt.float() + params["dt_bias"])          # (B, H)
+    a = -torch.exp(params["A_log"].float())
+    xh = xs.reshape(b_, n_heads, head_dim)
+    k = b_ssm[:, None, :].expand(b_, n_heads, d_state) * dt[..., None]
+    q = c_ssm[:, None, :].expand(b_, n_heads, d_state)
+    ssm_state, y = linear_rnn_step(state["ssm"], q, k, xh, a * dt)
+    y = y + params["D"][None, :, None] * xh.float()
+    out = _gated_out(params, y.reshape(b_, d_inner), z, x.dtype)
+    return out[:, None], {"ssm": ssm_state, "conv": hist[:, 1:]}

@@ -1,8 +1,10 @@
 """The port's model zoo slice against the JAX package: the `flash_attn`
-and `ssd_chunk` kernels' plain versions, attention, the chunked linear
-recurrence, mLSTM / sLSTM, and the reduced qwen3-0.6b and xlstm-350m
-(forward and decode, both parameter layouts), plus the kernels' gradients,
-the registry, `serve --zoo` and the archs that are not ported.
+and `ssd_chunk` kernels' plain versions, attention (RoPE and M-RoPE), the
+chunked linear recurrence, mLSTM / sLSTM, and the reduced qwen3-0.6b,
+xlstm-350m, gemma3-12b, qwen2-7b, command-r-plus-104b and qwen2-vl-2b
+(forward, the last-position prefill and decode, both parameter layouts;
+zamba2 is in `test_torch_zamba.py`), plus the kernels' gradients, the
+registry, `serve --zoo` and the archs that are not ported.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; it is held
 against the JAX Pallas kernel in interpret mode and the JAX oracle on the
@@ -328,32 +330,67 @@ def test_mlstm_slstm_match_jax():
 # the reduced models, forward and decode
 # ---------------------------------------------------------------------------
 
-# qwen3 at attn_chunk=32 so S = 64 takes the blockwise branch; xlstm at
-# S = 300: two chunks of 256, the second padded
+# attn_chunk=32, so the attention takes the blockwise branch (flash_attn)
+# at S = 64 (qwen3, qwen2-7b, command-r), at S = 128 (gemma3: its window of
+# 64 then cuts the local layer's keys) and at the VLM's 8 patches + 56
+# text tokens; xlstm at S = 300: two chunks of 256, the second padded.
+# "qwen2-vl-2b-text": the VLM without patches (text-only M-RoPE).
 ZOO = [("qwen3-0.6b", dict(attn_chunk=32), 64),
-       ("xlstm-350m", {}, 300)]
+       ("xlstm-350m", {}, 300),
+       ("gemma3-12b", dict(attn_chunk=32), 128),
+       ("qwen2-7b", dict(attn_chunk=32), 64),
+       ("command-r-plus-104b", dict(attn_chunk=32), 64),
+       ("qwen2-vl-2b", dict(attn_chunk=32), 56),
+       ("qwen2-vl-2b-text", dict(attn_chunk=32, num_patches=0), 64)]
 DECODE_STEPS = 4
+
+
+def _vlm_inputs(rng, b, n_patches, s, d):
+    """Patch embeddings and the M-RoPE positions laid out as Qwen2-VL
+    Sec. 3.1 lays them out: the patches on a 2 x (n / 2) grid at t = 0,
+    then the text from one past the largest patch coordinate, advancing
+    in all three."""
+    cols = n_patches // 2
+    i = np.arange(n_patches)
+    patch = np.stack([np.zeros_like(i), i // cols, i % cols])
+    text = np.broadcast_to(cols + np.arange(s), (3, s))
+    pos = np.concatenate([patch, text], axis=1).astype(np.int32)
+    return {"patch_embeds": _f(rng, b, n_patches, d),
+            "mrope_positions": np.ascontiguousarray(
+                np.broadcast_to(pos, (b,) + pos.shape))}
 
 
 @pytest.mark.parametrize("scan", [False, True], ids=["units", "stacked"])
 @pytest.mark.parametrize("arch,kw,s", ZOO, ids=[z[0] for z in ZOO])
 def test_reduced_model_matches_jax(arch, kw, s, scan):
+    arch = arch.removesuffix("-text")
     jcfg = jget_config(arch).reduced(scan_layers=scan, **kw)
     jmodel = japi.get_model(jcfg)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0))
     toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (2, s), 0,
                                          jcfg.vocab), np.int32)
-    want = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(toks)})
+    batch = {"tokens": toks}
+    if jcfg.num_patches:
+        batch.update(_vlm_inputs(np.random.default_rng(2), 2,
+                                 jcfg.num_patches, s, jcfg.d_model))
+    want = jax.jit(jmodel.forward)(jparams, {k: jnp.asarray(v)
+                                             for k, v in batch.items()})
 
     cfg = get_config(arch).reduced(scan_layers=scan, **kw)
     model = api.get_model(cfg)
     params = bridge.zoo_params_from_numpy(_jtree(jparams), "cpu")
+    tbatch = {k: _t(v) for k, v in batch.items()}
     with torch.no_grad():
-        got = model.forward(params, {"tokens": _t(toks)})
+        got = model.forward(params, tbatch)
+        last = model.prefill(params, tbatch)
     _close(got, want, f"{arch} forward")
+    _close(last, np.asarray(want)[:, -1], f"{arch} prefill vs JAX's "
+           f"forward[:, -1]")
+    _close(last, got[:, -1].numpy(), f"{arch} prefill vs forward[:, -1]")
 
-    # decode: DECODE_STEPS tokens against JAX's decode, and against the
-    # port's own forward at every position
+    # decode: DECODE_STEPS tokens against JAX's decode, and (without
+    # patches, whose rows shift the text's positions) against the port's
+    # own forward at every position
     jstate = jmodel.init_decode_state(2, 16)
     jstep = jax.jit(jmodel.decode_step)
     with torch.no_grad():
@@ -364,10 +401,59 @@ def test_reduced_model_matches_jax(arch, kw, s, scan):
                                jnp.asarray(i, jnp.int32))
             lg, state = model.decode_step(params, state, _t(tok), i)
             _close(lg, jl, f"{arch} decode step {i}")
-            err = float((lg[:, 0] - got[:, i]).abs().max())
-            assert err < 1e-4, (arch, i, err)
+            if not cfg.num_patches:
+                err = float((lg[:, 0] - got[:, i]).abs().max())
+                assert err < 1e-4, (arch, i, err)
     assert bridge.zoo_params_to_numpy(params)["embed"]["table"].shape == \
         np.asarray(jparams["embed"]["table"]).shape
+
+
+def test_apply_mrope_matches_jax():
+    """M-RoPE at the reduced qwen2-vl's sections (12, 10, 10) of a 64-wide
+    head and at the published (16, 24, 24) of a 128-wide one, positions
+    below 500 drawn per coordinate. The jitted JAX frequencies and the
+    port's are each within one float32 ulp of 1 / theta^(i/d), on
+    different sides for some i, and the angle pos * freq carries that:
+    the two agree within TOL + 500 * 2^-23 of max|x|."""
+    rng = np.random.default_rng(7)
+    for d, sections in [(64, (12, 10, 10)), (128, (16, 24, 24))]:
+        x = _f(rng, 2, 9, 3, d)
+        pos = rng.integers(0, 500, (2, 3, 9)).astype(np.int32)
+        want = jax.jit(lambda a, p: jattn.apply_mrope(
+            a, p, sections, 1_000_000.0))(x, pos)
+        got = attention.apply_mrope(_t(x), _t(pos), sections, 1_000_000.0)
+        _close(got, want, f"apply_mrope d={d}", tol=TOL + 500 * 2.0 ** -23)
+    with pytest.raises(ValueError, match="sections"):
+        attention.apply_mrope(_t(x), _t(pos), (16, 24, 23))
+
+
+def test_vlm_extra_inputs_match_jax():
+    jm = japi.get_model(jget_config("qwen2-vl-2b"))
+    m = api.get_model(get_config("qwen2-vl-2b"))
+    want = {k: (tuple(v.shape), np.dtype(v.dtype).name)
+            for k, v in jm.extra_inputs(2, 7936).items()}
+    got = {k: (shape, str(dt).removeprefix("torch."))
+           for k, (shape, dt) in m.extra_inputs(2, 7936).items()}
+    assert got == want
+    assert api.get_model(get_config("qwen2-7b")).extra_inputs(2, 64) == {}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "zamba2-1.2b"])
+def test_stacked_init_equals_units(arch):
+    """The stacked layout, built a unit at a time (`base.unit_params`),
+    holds unit i's draws where the `u{i}` layout does, from one seed."""
+    from repro_torch.nn.module import unstack
+    trees = {}
+    for scan in (False, True):
+        cfg = get_config(arch).reduced(scan_layers=scan, n_layers=4)
+        trees[scan] = api.get_model(cfg).init(
+            torch.Generator().manual_seed(0), "cpu")
+    for i in range(2):
+        for a, b in zip(jax.tree.leaves(jax.tree.map(
+                lambda t: t.numpy(), trees[False]["blocks"][f"u{i}"])),
+                jax.tree.leaves(jax.tree.map(
+                    lambda t: t.numpy(), unstack(trees[True]["blocks"], i)))):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_port_init_shapes_match_jax():
@@ -454,7 +540,7 @@ def test_unported_archs_raise(arch):
         get_config(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "audio"])
+@pytest.mark.parametrize("family", ["moe", "audio"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
                               family=family)
