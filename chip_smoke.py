@@ -37,7 +37,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    4-byte copies), B = 1 with h_items the engine's h[B:] view 84 bytes
    into its buffer, I at its 80- and 160-item blocks +- 1 and at the
    switch between them, B = 17 and 1,024 at I = 20,000, D = 128, and
-   D = 172).
+   D = 172); flash_attn at kimi-k2's D = 112 with n_rep 8 (S = 8,192 and
+   a ragged S = 1,000), and the soft-capped blockwise branch of
+   nn/attention.py (plain PyTorch) against the dense capped one, with no
+   launch).
 4. serve-config at the paper model's widths (tgn_pres.CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk, the engine as users get it:
@@ -108,8 +111,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    mLSTM or Mamba2 layer), against the plain route; then timed in the
    published bfloat16 (tokens/s, peak memory; flash_attn's launches all
    on its bf16 wgmma route) and 16 greedy decode steps against an S-slot
-   cache (ms a step; decode launches no kernel). cli-zoo: `python -m
-   repro_torch.launch.serve --zoo` for every ported arch.
+   cache (ms a step; decode launches no kernel). zoo-arctic / zoo-kimi /
+   zoo-whisper: the same for arctic-480b (1 of 35 layers) and
+   kimi-k2-1t-a32b (its dense first layer and one MoE layer) at published
+   widths with bfloat16 weights, B = 1, S = 8,192 (flash_attn 1 and 2
+   launches; the routing of both routes compared, flips logged), and
+   whisper-tiny whole (B = 2, 1,500 frames, 448 tokens; no launch).
+   train-zoo-qwen3 / -zamba2 / -xlstm: zoo training at full width (remat
+   on, ARCH_OPTIMIZER's optimizer): one fp32 step's loss and every
+   gradient leaf and a 3-step free-running loss curve against the plain
+   route, launches pinned a step (TRAIN_ZOO), then bf16 steps timed;
+   train-zoo-reduced: two steps of each of the ten arches reduced.
+   cli-zoo: `python -m repro_torch.launch.serve --zoo` for every arch.
 10. kernels: each kernel and its plain version timed (CUDA events around
    the Python call, median: `ms`, host work included where the card waits
    for it; and `device_ms`, the kernel's own CUDA time a call from
@@ -202,7 +215,59 @@ ZOO = {"zoo-qwen3": ("qwen3-0.6b", 2, 8192, {"flash_attn": 28}, 0),
                       {"ssd_chunk": 38 * 32, "flash_attn": 6}, 0),
        "zoo-gemma3": ("gemma3-12b", 1, 8192, {"flash_attn": 48}, 40),
        "zoo-qwen2": ("qwen2-7b", 1, 8192, {"flash_attn": 28}, 0),
-       "zoo-qwen2vl": ("qwen2-vl-2b", 2, 7936, {"flash_attn": 28}, 0)}
+       "zoo-qwen2vl": ("qwen2-vl-2b", 2, 7936, {"flash_attn": 28}, 0),
+       # the MoE family at published widths, cut in depth (ZOO_CUT):
+       # arctic-480b's one layer (56 query heads over 8, D = 128) and
+       # kimi-k2's dense first layer and one MoE layer (64 over 8, D = 112)
+       "zoo-arctic": ("arctic-480b", 1, 8192, {"flash_attn": 1}, 0),
+       "zoo-kimi": ("kimi-k2-1t-a32b", 1, 8192, {"flash_attn": 2}, 0),
+       # whisper-tiny whole: 1,500 frames, a 448-token decoder; its
+       # attention is dense everywhere, so it launches no kernel
+       "zoo-whisper": ("whisper-tiny", 2, 448, {}, 0)}
+# the zoo phases' cuts of their published configs: depth only, and the
+# MoE weights stored in bfloat16 (kimi's 384 experts are 33.8 GB so, 67.6
+# GB in float32; the float32 prefill casts them a slice at a time)
+ZOO_CUT = {"zoo-arctic": dict(n_layers=1, param_dtype="bfloat16"),
+           "zoo-kimi": dict(n_layers=2, param_dtype="bfloat16")}
+# zoo training at full width (published config, remat on, each arch's
+# ARCH_OPTIMIZER entry at lr 1e-4): arch, batch, sequence, each kernel's
+# launches a step. Remat runs each forward kernel twice: in the forward
+# and in the recompute; the backward runs the plain versions (no launch).
+# qwen3: 28 attention layers x 2 (S = 4,096 = 2 x attn_chunk: the
+# blockwise branch); zamba2: 36 Mamba2 blocks in its 6 units x 16 chunks x
+# 2, its 2 tail blocks (outside remat) x 16, the shared attention x 6 x 2;
+# xlstm: 21 mLSTM layers x 2 chunks x 2 (S = 512: its sLSTM loop over
+# time is host-bound)
+TRAIN_ZOO = {"train-zoo-qwen3": ("qwen3-0.6b", 1, 4096, {"flash_attn": 56}),
+             "train-zoo-zamba2": ("zamba2-1.2b", 1, 4096,
+                                  {"ssd_chunk": 36 * 16 * 2 + 2 * 16,
+                                   "flash_attn": 12}),
+             "train-zoo-xlstm": ("xlstm-350m", 2, 512, {"ssd_chunk": 84})}
+# each reduced arch (attn_chunk=32, the stacked layout, remat on) at B = 2
+# and 64 positions: its kernels' launches a step (2 layers; kimi's first,
+# dense, layer runs outside remat; zamba2's one unit of 2 Mamba2 blocks
+# and the shared block; xlstm's one mLSTM layer; whisper none)
+TRAIN_ZOO_REDUCED = {
+    "arctic-480b": {"flash_attn": 4}, "xlstm-350m": {"ssd_chunk": 2},
+    "gemma3-12b": {"flash_attn": 4}, "command-r-plus-104b": {"flash_attn": 4},
+    "qwen2-7b": {"flash_attn": 4}, "kimi-k2-1t-a32b": {"flash_attn": 3},
+    "qwen2-vl-2b": {"flash_attn": 4}, "qwen3-0.6b": {"flash_attn": 4},
+    "whisper-tiny": {}, "zamba2-1.2b": {"ssd_chunk": 4, "flash_attn": 2}}
+# zoo training, fp32 kernel route against the plain route: the loss of
+# one step from the same parameters and batch within "loss" of its scale;
+# each gradient leaf within "grad" of its own largest |g| or of 1e-3 of
+# the largest |g| of any leaf (a leaf that vanishes in exact arithmetic
+# holds rounding noise); the free running losses within "curve" of their
+# scale at every step
+TRAIN_ZOO_TOL = {"loss": 1e-5, "grad": 1e-3, "curve": 1e-3}
+# train phases whose gradients or free-running losses move under
+# rounding-sized perturbations of the zoo kernels' plain outputs by more
+# than TRAIN_ZOO_TOL (zamba2's Mamba2 blocks and xlstm's recurrences, as
+# in zamba2's prefill): the plain route's own spread under +-1e-6 nudges
+# is measured in each of their runs and joins each leaf's and each step's
+# limit. The other train phases are held to TRAIN_ZOO_TOL alone
+TRAIN_ZOO_NOISE_FLOOR = ("train-zoo-zamba2", "train-zoo-xlstm")
+TRAIN_ZOO_STEPS = 3
 # the phases whose kernel rows go in the result line (the others' rows go
 # to --out and the log)
 ZOO_LINE = ("zoo-qwen3", "zoo-xlstm")
@@ -211,6 +276,10 @@ ZOO_LINE = ("zoo-qwen3", "zoo-xlstm")
 # measured in every zoo phase): they are held to ZOO_TOL's limit plus
 # that spread
 ZOO_NOISE_FLOOR = ("zoo-zamba2",)
+# MoE phases: a router's top-k set that differs between the routes (a
+# "flip": two probabilities within rounding of each other) also moves the
+# capacity ranks of later tokens; when one occurs the phase is held as
+# ZOO_NOISE_FLOOR's are, and the flips are logged with their margins
 # the zoo's last-position prefill logits, kernel route against the plain
 # route, both float32: |kernel - plain| <= ZOO_TOL * max(1, max|plain|)
 ZOO_TOL = 1e-4
@@ -654,6 +723,43 @@ def check_tensor_core_build(out_dir):
 # ---------------------------------------------------------------------------
 
 
+def softcap_check(dev):
+    """The soft-capped blockwise branch of `nn/attention.py` (plain
+    PyTorch: no kernel takes a cap) on the card: `attention` with a chunk
+    and a cap launches no kernel and matches the dense capped branch (no
+    chunk) within flash_attn's TOL, causal and windowed, at B = 2, S =
+    1,024, 8 query heads over 2, D = 64, chunks of 256."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.nn import attention
+    from repro_torch.nn.module import ParamBuilder
+    gen = torch.Generator(dev).manual_seed(0)
+    b = ParamBuilder(gen)
+    attention.attention_init(b, "attn", 256, 8, 2, 64, qk_norm=True)
+    x = torch.randn((2, 1024, 256), generator=gen, device=dev)
+    pos = torch.arange(1024, device=dev)[None].expand(2, 1024)
+    worst = 0.0
+    for window in (None, 300):
+        kw = dict(d_head=64, window=window, softmax_scale_cap=20.0)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            got = attention.attention(b.params["attn"], x, pos, chunk=256,
+                                      **kw)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = attention.attention(b.params["attn"], x, pos, **kw)
+        require(not any(counts.values()), f"softcap: the capped branch "
+                f"launched a kernel: {counts}")
+        err = float((got - want).abs().max())
+        lim = TOL["flash_attn"] * max(1.0, float(want.abs().max()))
+        require(err <= lim, f"softcap window={window}: blockwise vs dense "
+                f"{err:.3g} > {lim:.3g}")
+        worst = max(worst, err)
+        log(f"[edge] softcap window={window}: capped blockwise vs dense "
+            f"max_abs_err={err:.3g}, no launch")
+    return worst
+
+
 def edge_cases(dev):
     import numpy as np
     import torch
@@ -814,7 +920,9 @@ def edge_cases(dev):
     # and the zoo's modes at S = 8,192: n_rep 7 (qwen2-7b's 28 heads over
     # 4), n_rep 12 (command-r-plus's 96 over 8, two kv heads of it), D =
     # 256 with a 1,024-key window (gemma3's local layers), D = 64 with
-    # n_rep 1 (zamba2's shared attention)
+    # n_rep 1 (zamba2's shared attention), and kimi-k2's D = 112 with n_rep
+    # 8 (14 columns of 8: the wgmma route's second 64-column panel reads
+    # past the row and must see zeros) at S = 8,192 and at a ragged S
     for g, gkv, s_, t_, d, causal, window in [
             (1, 1, 1, 1, 64, True, None), (4, 2, 1, 37, 128, False, None),
             (2, 2, 100, 100, 64, True, None), (8, 2, 130, 130, 128, True, 50),
@@ -828,7 +936,9 @@ def edge_cases(dev):
             (28, 4, 8192, 8192, 128, True, None),
             (24, 2, 8192, 8192, 128, True, None),
             (16, 8, 8192, 8192, 256, True, 1024),
-            (8, 8, 8192, 8192, 64, True, None)]:
+            (8, 8, 8192, 8192, 64, True, None),
+            (64, 8, 8192, 8192, 112, True, None),
+            (16, 2, 1000, 1000, 112, True, None)]:
         for dt in (torch.float32, torch.bfloat16):
             args = [t(f(g, s_, d, sc=0.5)).to(dt),
                     t(f(gkv, t_, d, sc=0.5)).to(dt),
@@ -1792,15 +1902,23 @@ def check_routes(label, what, expect, kernels):
             f"routes {fa.launches_by_route}, expected {expect}")
 
 
-def zoo_batch(cfg, model, b, s, gen, dev):
-    """B x S random tokens and, for the VLM, `num_patches` random patch
-    embeddings (in `model`'s dtype: a model casts them to its own) and the
-    M-RoPE positions as Qwen2-VL Sec. 3.1 lays them
-    out: the patches on a square grid at t = 0, then the text from one past
-    the largest patch coordinate, advancing in all three."""
+def zoo_batch(cfg, model, b, s, gen, dev, targets=False):
+    """B x S random tokens (and as many random targets with `targets`)
+    and, for the VLM, `num_patches` random patch embeddings (in `model`'s
+    dtype: a model casts them to its own) and the M-RoPE positions as
+    Qwen2-VL Sec. 3.1 lays them out: the patches on a square grid at t =
+    0, then the text from one past the largest patch coordinate, advancing
+    in all three; for whisper, random frame embeddings."""
     import torch
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
                                      device=dev)}
+    if targets:
+        batch["targets"] = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                         device=dev)
+    if cfg.enc_layers:
+        batch["audio_feats"] = torch.randn(
+            (b, cfg.enc_frames, cfg.d_model), generator=gen, device=dev,
+            dtype=model.cfg.dtype)
     if cfg.num_patches:
         n = cfg.num_patches
         side = int(round(n ** 0.5))
@@ -1814,8 +1932,9 @@ def zoo_batch(cfg, model, b, s, gen, dev):
             (b, n, cfg.d_model), generator=gen, device=dev,
             dtype=model.cfg.dtype)
         batch["mrope_positions"] = pos.expand(b, 3, n + s).contiguous()
+    if model.extra_inputs is not None:
         shapes = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()
-                  if k != "tokens"}
+                  if k not in ("tokens", "targets")}
         require(shapes == {k: (tuple(sh), dt) for k, (sh, dt) in
                            model.extra_inputs(b, s).items()},
                 f"{cfg.arch_id}: the batch does not match extra_inputs")
@@ -1868,15 +1987,24 @@ def _zoo_noise_floor(model, params, batch, want):
     return floor
 
 
+def zoo_config(arch, cut=None):
+    """The published config of `arch` with the cuts in `cut` (a dtype by
+    its torch name)."""
+    import torch
+    from repro_torch.configs import get_config
+    cut = {k: getattr(torch, v) if k.endswith("dtype") else v
+           for k, v in (cut or {}).items()}
+    return dataclasses.replace(get_config(arch), **cut)
+
+
 def zoo_inputs(label, dev, seed):
-    """The phase's published config, its float32 model, weights drawn
-    from `seed` and then the batch (ZOO's B x S tokens, the VLM's
-    patches) from the same generator."""
+    """The phase's published config (cut by ZOO_CUT), its float32 model,
+    weights drawn from `seed` and then the batch (ZOO's B x S tokens, the
+    VLM's patches, whisper's frames) from the same generator."""
     import torch
     from repro_torch.archs.api import get_model
-    from repro_torch.configs import get_config
     arch, b, s = ZOO[label][:3]
-    cfg = get_config(arch)
+    cfg = zoo_config(arch, ZOO_CUT.get(label))
     model = get_model(dataclasses.replace(cfg, dtype=torch.float32))
     gen = torch.Generator(dev).manual_seed(seed)
     params = model.init(gen, dev)
@@ -1903,6 +2031,62 @@ class CountWindowed:
 
     def __exit__(self, *exc):
         self.ops.REGISTRY["flash_attn"] = self.saved
+
+
+class RouteLog:
+    """Records each MoE layer's routing while entered: the router
+    probabilities' top k + 1 and their ids, and the keep mask of the
+    capacity (the calls go through unchanged)."""
+
+    def __init__(self):
+        from repro_torch.nn import moe
+        self.moe = moe
+        self.calls = []
+
+    def __enter__(self):
+        route, slots = self.moe._topk_route, self.moe.dispatch_slots
+        self.saved = (route, slots)
+
+        def topk_route(logits, k):
+            out = route(logits, k)
+            top = out[2].topk(k + 1, dim=-1)
+            self.calls.append({"k": k, "ids": out[1].clone(),
+                               "top": top.values.clone()})
+            return out
+
+        def dispatch(topi, n_experts, cap):
+            out = slots(topi, n_experts, cap)
+            self.calls[-1]["keep"] = out[1].clone()
+            return out
+
+        self.moe._topk_route, self.moe.dispatch_slots = topk_route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._topk_route, self.moe.dispatch_slots = self.saved
+
+
+def route_flips(label, a, b):
+    """Tokens whose top-k set differs between two RouteLogs of the same
+    prefill, and assignments whose keep flag differs; logs each layer's
+    counts and the flipped tokens' margins (the k-th less the (k+1)-th
+    probability of the plain route). Returns the number of flips."""
+    import torch
+    total = 0
+    for i, (x, y) in enumerate(zip(a.calls, b.calls)):
+        k = x["k"]
+        flip = (torch.sort(x["ids"], -1).values
+                != torch.sort(y["ids"], -1).values).any(-1)
+        keep = int((x["keep"] != y["keep"]).sum())
+        margin = y["top"][:, k - 1] - y["top"][:, k]
+        n = int(flip.sum())
+        total += n
+        log(f"[{label}] MoE layer {i}: {n} of {flip.numel()} tokens' top-{k} "
+            f"sets differ between the routes, {keep} keep flags; smallest "
+            f"margin {float(margin.min()):.3g}"
+            + (f", flipped tokens' margins "
+               f"{sorted(margin[flip].tolist())[:8]}" if n else ""))
+    return total
 
 
 def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
@@ -1944,7 +2128,7 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
     with torch.no_grad():
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        with CountWindowed() as win:
+        with CountWindowed() as win, RouteLog() as routes:
             got = model.prefill(params, batch)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
@@ -1954,7 +2138,10 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
         check_routes(label, "fp32", {"fma": per_prefill.get("flash_attn", 0),
                                      "wgmma": 0}, kernels)
         plain = get_model(dataclasses.replace(cfg32, kernels_mode="oracle"))
-        want = plain.prefill(params, batch)
+        with RouteLog() as plain_routes:
+            want = plain.prefill(params, batch)
+        flips = route_flips(label, routes, plain_routes)
+        del routes, plain_routes
         require(tuple(got.shape) == (b, cfg.vocab)
                 and bool(torch.isfinite(got).all()),
                 f"{label}: bad prefill logits {tuple(got.shape)}")
@@ -1964,12 +2151,12 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
         log(f"[{label}] fp32 prefill vs plain route: max|diff| {err:.3g} "
             f"(limit {lim:.3g}; the plain route's own spread {floor:.3g}); "
             f"argmax agree {bool((got.argmax(-1) == want.argmax(-1)).all())}")
-        if label in ZOO_NOISE_FLOOR:
+        if label in ZOO_NOISE_FLOOR or flips:
             lim += floor
         require(err <= lim, f"{label}: prefill logits differ from the plain "
                 f"route by {err:.3g} > {lim:.3g}")
         summary.update(fp32_vs_plain=err, fp32_limit=lim,
-                       fp32_noise_floor=floor)
+                       fp32_noise_floor=floor, route_flips=flips)
         del got, want, plain
 
         bf = get_model(cfg)                     # the published bfloat16
@@ -2007,6 +2194,8 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
                        / 1e6)
 
         state = bf.init_decode_state(b, s, dev)
+        if bf.encode is not None:           # whisper: the encoder's output
+            state["enc_out"] = bf.encode(params, batch["audio_feats"])
         tok = last.argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2035,6 +2224,302 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
     del params, state
     torch.cuda.empty_cache()
     return counts, inputs, summary
+
+
+# ---------------------------------------------------------------------------
+# zoo training
+# ---------------------------------------------------------------------------
+
+
+def _zoo_grads(model, params, batch):
+    """(loss, {leaf path: gradient}) of one loss + backward."""
+    from repro_torch.launch import specs
+    from repro_torch.utils.tree import tree_leaves
+    loss, _, grads = specs.loss_and_grads(model, params, batch)
+    return float(loss), dict(zip(_leaf_names(grads), tree_leaves(grads)))
+
+
+def _grad_limits(want):
+    """Each leaf's bare limit: TRAIN_ZOO_TOL["grad"] x max(its largest
+    |want|, 1e-3 x the largest |want| of any leaf). Returns {leaf: limit}."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {name: TRAIN_ZOO_TOL["grad"] * max(float(w.abs().max()),
+                                              1e-3 * top)
+            for name, w in want.items()}
+
+
+def _grad_errors(got, want, spread=None):
+    """Each leaf's max |got - want| over its limit: `_grad_limits`'s, plus
+    that leaf's entry of `spread` where given. Returns {leaf: ratio}."""
+    out = {}
+    for name, lim in _grad_limits(want).items():
+        lim += (spread or {}).get(name, 0.0)
+        out[name] = (float((got[name] - want[name]).abs().max())
+                     / max(lim, 1e-30))
+    return out
+
+
+def _train_zoo_inputs(label, dev, seed, dtype):
+    """The phase's published config in `dtype`, its model, float32
+    weights drawn from `seed` and a B x S batch of tokens and targets."""
+    import torch
+    from repro_torch.archs.api import get_model
+    arch, b, s = TRAIN_ZOO[label][:3]
+    cfg = dataclasses.replace(zoo_config(arch), dtype=getattr(torch, dtype))
+    model = get_model(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = model.init(gen, dev)
+    return cfg, model, params, zoo_batch(cfg, model, b, s, gen, dev,
+                                         targets=True)
+
+
+def train_zoo_phase(label, dev, seed):
+    """Zoo training at full width: the published config (remat on), its
+    ARCH_OPTIMIZER optimizer at lr 1e-4, random weights and batch from
+    `seed`. (1) float32, one loss + gradient from the same parameters and
+    batch through the kernels (each kernel exactly its TRAIN_ZOO launches,
+    flash_attn's on its fp32 route, no other kernel) and through the plain
+    route (kernels_mode="oracle"): the loss and every gradient leaf held
+    within TRAIN_ZOO_TOL (in TRAIN_ZOO_NOISE_FLOOR's phases plus the
+    plain route's own spread under +-1e-6 nudges of the kernels' plain
+    outputs, as `_zoo_noise_floor` adds it to a prefill's). (2) float32,
+    TRAIN_ZOO_STEPS free-running steps from the same start on both routes,
+    the losses held step by step (with the same spread in the same
+    phases). Both under deterministic algorithms. (3)
+    the published bfloat16: 1 warm-up and 3 timed steps (median ms,
+    tokens/s, peak memory), the same launches a step, flash_attn's on its
+    wgmma route. A deferred profile of one step gives the busy share."""
+    import numpy as np
+    import torch
+    from repro_torch.archs.api import get_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    arch, b, s, per_step = TRAIN_ZOO[label]
+    kernels = tuple(per_step)
+    summary = {"arch": arch, "batch": b, "seq": s,
+               "optimizer": specs.ARCH_OPTIMIZER.get(arch, "adamw"),
+               "launches_a_step": per_step}
+
+    def check_counts(what, counts, reps, route):
+        check_launches(label, counts, kernels)
+        require(all(counts[k] == reps * n for k, n in per_step.items()),
+                f"{label}: {what}: launches {counts}, expected {reps} x "
+                f"{per_step}")
+        fa = reps * per_step.get("flash_attn", 0)
+        check_routes(label, what, {"fma": fa if route == "fma" else 0,
+                                   "wgmma": fa if route == "wgmma" else 0},
+                     kernels)
+
+    cfg, model, params, batch = _train_zoo_inputs(label, dev, seed,
+                                                  "float32")
+    summary["params"] = sum(x.numel() for x in tree_leaves(params))
+    plain = get_model(dataclasses.replace(cfg, kernels_mode="oracle"))
+    with _deterministic():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        loss, got = _zoo_grads(model, params, batch)
+        torch.cuda.synchronize()
+        check_counts("fp32 loss + gradient", ops.launch_counts(), 1, "fma")
+        ops.reset_launch_counts()
+        want_loss, want = _zoo_grads(plain, params, batch)
+        require(not any(ops.launch_counts().values()),
+                f"{label}: the plain route launched a kernel")
+        require(np.isfinite(loss) and all(bool(torch.isfinite(g).all())
+                                          for g in got.values()),
+                f"{label}: loss or gradients not finite")
+        loss_err = abs(loss - want_loss)
+        require(loss_err <= TRAIN_ZOO_TOL["loss"] * max(1.0, abs(want_loss)),
+                f"{label}: loss {loss} vs the plain route's {want_loss}")
+        noise = label in TRAIN_ZOO_NOISE_FLOOR
+        bare = _grad_errors(got, want)
+        worst = max(bare, key=bare.get)
+        log(f"[{label}] fp32 step vs plain route: loss {loss:.6f} vs "
+            f"{want_loss:.6f}; worst gradient leaf {worst} at "
+            f"{bare[worst]:.3g} of TRAIN_ZOO_TOL's limit")
+        ratio, spread = bare, None
+        if noise:
+            spread = {n: 0.0 for n in want}
+            for eps in (1e-6, -1e-6):
+                with _nudge_zoo(eps):
+                    _, nudged = _zoo_grads(plain, params, batch)
+                for n, g in nudged.items():
+                    spread[n] = max(spread[n],
+                                    float((g - want[n]).abs().max()))
+                del nudged
+            ratio = _grad_errors(got, want, spread)
+            lims = _grad_limits(want)
+            rel = {n: spread[n] / max(lims[n], 1e-30) for n in want}
+            widest = max(rel, key=rel.get)
+            worst = max(ratio, key=ratio.get)
+            log(f"[{label}] the plain route's own gradient spread: widest "
+                f"{rel[widest]:.3g} x its bare limit ({widest}); worst "
+                f"leaf with it {worst} at {ratio[worst]:.3g} of its limit")
+        require(ratio[worst] <= 1.0, f"{label}: gradient {worst} differs "
+                f"from the plain route's beyond its limit "
+                f"({ratio[worst]:.3g} x)")
+        summary.update(fp32_loss=loss, fp32_loss_err=loss_err,
+                       grad_worst_leaf=worst, grad_worst_ratio=ratio[worst],
+                       grad_bare_ratio=max(bare.values()),
+                       grad_spread_used=noise)
+        del got, want, spread
+
+        # free-running: each route its own copy of the start
+        def curve(m, eps=None):
+            p = tree_map(lambda t: t.detach().clone(), params)
+            opt = specs.make_optimizer(arch, 1e-4)
+            step = specs.make_train_step(m, opt)
+            st = opt.init(p)
+            losses = []
+            with (_nudge_zoo(eps) if eps else contextlib.nullcontext()):
+                for _ in range(TRAIN_ZOO_STEPS):
+                    p, st, lo = step(p, st, batch)
+                    losses.append(float(lo))
+            return losses
+
+        ops.reset_launch_counts()
+        curves = {"kernel": curve(model)}
+        check_counts(f"{TRAIN_ZOO_STEPS} fp32 steps", ops.launch_counts(),
+                     TRAIN_ZOO_STEPS, "fma")
+        curves["plain"] = curve(plain)
+        gaps = [abs(a - c) for a, c in zip(curves["kernel"], curves["plain"])]
+        lims = [TRAIN_ZOO_TOL["curve"] * max(1.0, abs(c))
+                for c in curves["plain"]]
+        log(f"[{label}] free-running fp32 losses: kernels {curves['kernel']}"
+            f", plain {curves['plain']}")
+        require(all(np.isfinite(curves["kernel"])),
+                f"{label}: free-running loss not finite")
+        log(f"[{label}] free-running: gaps {gaps} against "
+            f"TRAIN_ZOO_TOL's limits {lims}")
+        spread = None
+        if noise:
+            spread = [0.0] * TRAIN_ZOO_STEPS
+            for eps in (1e-6, -1e-6):
+                spread = [max(sp, abs(a - c)) for sp, a, c in
+                          zip(spread, curve(plain, eps), curves["plain"])]
+            log(f"[{label}] free-running: the plain route's own spread "
+                f"{spread}, {[sp / lim for sp, lim in zip(spread, lims)]} "
+                f"x the bare limits")
+            lims = [lim + sp for lim, sp in zip(lims, spread)]
+        require(all(g <= lim for g, lim in zip(gaps, lims)),
+                f"{label}: free-running losses apart by {gaps} > {lims}")
+        summary.update(curve_kernel=curves["kernel"],
+                       curve_plain=curves["plain"], curve_gaps=gaps,
+                       curve_limits=lims, curve_spread=spread)
+    del model, plain, params, batch
+    torch.cuda.empty_cache()
+
+    # the published bfloat16, timed
+    cfg, bf, params, batch = _train_zoo_inputs(label, dev, seed, "bfloat16")
+    opt = specs.make_optimizer(arch, 1e-4)
+    step = specs.make_train_step(bf, opt)
+    st = opt.init(params)
+    params, st, lo = step(params, st, batch)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    secs, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, lo = step(params, st, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(lo))
+    check_counts("3 bf16 steps", ops.launch_counts(), 3, "wgmma")
+    require(all(np.isfinite(losses)), f"{label}: bf16 loss not finite")
+    med = float(np.median(secs))
+    summary.update(bf16_step_s=secs, bf16_step_ms_median=med * 1e3,
+                   bf16_tokens_per_s=b * s / med, bf16_losses=losses,
+                   bf16_peak_mem_mb=torch.cuda.max_memory_allocated() / 1e6)
+    log(f"[{label}] {json.dumps(summary)}")
+    del params, st, batch, bf
+    torch.cuda.empty_cache()
+    DEFERRED_PROFILES.append(functools.partial(_profile_train_zoo, label,
+                                               dev, seed))
+    return summary
+
+
+def _profile_train_zoo(label, dev, seed):
+    """torch.profiler over one bf16 train step of the phase (after one
+    unprofiled step), its weights and batch drawn again from `seed`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import specs
+    arch = TRAIN_ZOO[label][0]
+    _, bf, params, batch = _train_zoo_inputs(label, dev, seed, "bfloat16")
+    opt = specs.make_optimizer(arch, 1e-4)
+    step = specs.make_train_step(bf, opt)
+    st = opt.init(params)
+    params, st, _ = step(params, st, batch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, st, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del params, st, batch
+    torch.cuda.empty_cache()
+    _report_profile(label, prof, wall_us, "one bf16 train step")
+
+
+def train_zoo_reduced_phase(label, dev, seed):
+    """Each of the ten zoo arches reduced (attn_chunk=32, the stacked
+    layout, remat on; the VLM's 16 patches on a 4 x 4 grid) at B = 2 and
+    64 positions, float32 on the kernel
+    route: two train steps with its ARCH_OPTIMIZER optimizer under
+    deterministic algorithms, each kernel exactly its TRAIN_ZOO_REDUCED
+    launches a step and no other; the losses finite and every parameter
+    leaf the loss reaches moved."""
+    import torch
+    from repro_torch.archs.api import get_model
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.utils.tree import tree_leaves
+    require(sorted(TRAIN_ZOO_REDUCED) == sorted(ARCH_IDS),
+            f"{label}: TRAIN_ZOO_REDUCED does not cover every arch")
+    out = {}
+    for arch in ARCH_IDS:
+        per_step = TRAIN_ZOO_REDUCED[arch]
+        cfg = get_config(arch).reduced(attn_chunk=32, scan_layers=True,
+                                       remat=True)
+        if cfg.num_patches:
+            # zoo_batch lays the patches on a square grid
+            cfg = dataclasses.replace(cfg, num_patches=16)
+        model = get_model(cfg)
+        gen = torch.Generator(dev).manual_seed(seed)
+        params = model.init(gen, dev)
+        batch = zoo_batch(cfg, model, 2, 64 - cfg.num_patches, gen, dev,
+                          targets=True)
+        start = [t.detach().clone() for t in tree_leaves(params)]
+        opt = specs.make_optimizer(arch, 1e-4)
+        step = specs.make_train_step(model, opt)
+        st = opt.init(params)
+        losses = []
+        with _deterministic():
+            ops.reset_launch_counts()
+            for _ in range(2):
+                params, st, lo = step(params, st, batch)
+                losses.append(float(lo))
+            counts = ops.launch_counts()
+        check_launches(f"{label}-{arch}", counts, tuple(per_step))
+        require(all(counts[k] == 2 * n for k, n in per_step.items()),
+                f"{label}: {arch}: launches {counts}, expected 2 x "
+                f"{per_step}")
+        moved = [bool((a != b).any())
+                 for a, b in zip(start, tree_leaves(params))]
+        require(all(torch.isfinite(torch.tensor(losses))),
+                f"{label}: {arch}: losses {losses}")
+        # a leaf the loss does not reach (the padded vocab rows are inside
+        # the embedding leaf, so every leaf is reached) keeps its values
+        require(all(moved), f"{label}: {arch}: {moved.count(False)} "
+                f"parameter leaves did not move")
+        out[arch] = {"losses": losses, "launches": per_step,
+                     "optimizer": specs.ARCH_OPTIMIZER.get(arch, "adamw")}
+        log(f"[{label}] {arch}: {json.dumps(out[arch])}")
+    return out
 
 
 def cli_zoo_phase(label, arch, steps):
@@ -2121,7 +2606,8 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-config-plain", "cli-new", "cli-time", "cli-jodie",
           "cli-plain", "cli-ckpt", "cli-csv", "train-production-pipe", "train-production-dense",
           "train-production-apan", "train-production-rnn",
-          "train-production-jodie") + tuple(ZOO) + ("cli-zoo",)
+          "train-production-jodie") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
+              "train-zoo-reduced", "cli-zoo")
 
 
 def kernel_row(name, spec, phase, inputs, counts):
@@ -2278,6 +2764,7 @@ def main(argv=None):
         for name, a, kw, label in edge_cases(dev):
             err = check_kernel(name, a, kw, label)
             log(f"[edge] {name} {label}: max_abs_err={err:.3g}")
+        softcap_check(dev)
 
     from repro_torch.configs import tgn_pres
     from repro_torch.graph import datasets
@@ -2499,6 +2986,16 @@ def main(argv=None):
             for key, best in inputs.items():
                 keep(ZOO[label][3], "zoo" if key in ZOO_LINE else key, best,
                      counts)
+    # zoo training at full width, then each reduced arch
+    train_zoo_sum = {}
+    for label in TRAIN_ZOO:
+        if label in only:
+            train_zoo_sum[label] = timed(label, train_zoo_phase, label, dev,
+                                         args.seed)
+    if "train-zoo-reduced" in only:
+        train_zoo_sum["train-zoo-reduced"] = timed(
+            "train-zoo-reduced", train_zoo_reduced_phase,
+            "train-zoo-reduced", dev, args.seed)
     if "cli-zoo" in only:
         from repro_torch.configs import ARCH_IDS
         for arch in ARCH_IDS:
@@ -2538,6 +3035,7 @@ def main(argv=None):
             {"card": card, "kernels": rows, "more_kernel_rows": more_rows,
              "zoo_kernel_rows": zoo_rows,
              "serve": serve_sum, "train": train_sum, "zoo": zoo_sum,
+             "train_zoo": train_zoo_sum,
              "profiles": PROFILES, "seconds": seconds},
             indent=1))
     print(json.dumps({"kernels": rows}))

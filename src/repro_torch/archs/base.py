@@ -5,28 +5,29 @@ Every architecture exposes a `Model`:
     init(gen, device=None)       -> params (nested dict of tensors)
     forward(params, batch)       -> logits (B, S, V)   [training math]
     prefill(params, batch)       -> logits (B, V)      [the last position]
+    loss_fn(params, batch)       -> (scalar loss, aux dict) [CE + aux]
     init_decode_state(batch_size, cache_len, device=None) -> state
     decode_step(params, state, tokens, pos) -> (logits, state)
-    loss_fn                      -> raises: zoo training is a later slice
 
 Entry points run on CUDA unless given device="cpu". Serving callers run
 them under `torch.no_grad()`; with grad mode on, every kernel call saves
-its inputs for the backward through its plain version."""
+its inputs for the backward through its plain version, and with
+`cfg.remat` each layer unit is recomputed in the backward
+(`torch.utils.checkpoint`, JAX's `jax.checkpoint`)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import layers
-from repro_torch.nn.module import ParamBuilder, unstack
+from repro_torch.nn.module import ParamBuilder
 from repro_torch.utils.tree import tree_map
 
 
-# The fields the ported archs read; those that only unported archs read
-# (MoE, whisper, remat, ...) join with the slice that ports them.
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
@@ -50,13 +51,23 @@ class ModelConfig:
     # sequences (None = dense). Engaged when S >= 2*attn_chunk and
     # S % attn_chunk == 0; the kernel's tiles do not depend on it.
     attn_chunk: int | None = 2048
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    dense_residual: bool = False        # arctic: dense FFN branch in parallel
+    first_dense: int = 0                # kimi: first N layers are dense FFN
+    n_shared_experts: int = 0           # kimi: always-on shared expert(s)
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     # SSM / xLSTM / hybrid
     ssm_state: int = 0
     ssm_head_dim: int = 64
     mamba_expand: int = 2
     slstm_every: int = 0                # xLSTM: every Nth layer is sLSTM
     attn_every: int = 0                 # zamba2: shared attn after every Nth block
-    # vlm
+    # audio (whisper) / vlm
+    enc_layers: int = 0
+    enc_frames: int = 1500
     num_patches: int = 0
     mrope_sections: tuple[int, ...] | None = None
     # runtime
@@ -64,7 +75,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    remat: bool = True
     scan_layers: bool = True
+    max_seq: int = 8192                 # positional table size (whisper only)
     # the port's kernel route (ops.dispatch's mode): "auto" (the kernels on
     # CUDA tensors, the plain versions on CPU tensors) or "oracle" (the
     # plain versions everywhere, for comparison)
@@ -75,7 +88,7 @@ class ModelConfig:
         return self.d_head or self.d_model // self.n_heads
 
     def reduced(self, **kw) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model<=256."""
+        """Smoke-test variant: 2 layers, d_model<=256, <=4 experts."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, n_heads)
@@ -87,15 +100,22 @@ class ModelConfig:
             d_head=d_model // n_heads,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab=min(self.vocab, 1024),
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            first_dense=min(self.first_dense, 1),
             global_every=2 if self.global_every else 0,
             window=min(self.window, 64) if self.window else None,
             slstm_every=2 if self.slstm_every else 0,
             attn_every=2 if self.attn_every else 0,
+            enc_layers=2 if self.enc_layers else 0,
+            enc_frames=16 if self.enc_layers else self.enc_frames,
             num_patches=8 if self.num_patches else 0,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
             dtype=torch.float32,
+            remat=False,
             scan_layers=False,
+            max_seq=512,
         )
         if self.mrope_sections:
             hd = d_model // n_heads
@@ -105,23 +125,17 @@ class ModelConfig:
         return dataclasses.replace(self, **upd)
 
 
-def _no_loss(params, batch):
-    raise NotImplementedError(
-        "zoo training (cross_entropy / loss_fn) is not ported yet; it waits "
-        "for the zoo training slice (ROADMAP Queue 1 item 19)")
-
-
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     init: Callable
     forward: Callable
     prefill: Callable
-    loss_fn: Callable = _no_loss
+    loss_fn: Callable
     init_decode_state: Callable | None = None
     decode_step: Callable | None = None
-    extra_inputs: Callable | None = None  # shapes of aux inputs (vlm)
-    encode: Callable | None = None        # enc-dec only (whisper: not ported)
+    extra_inputs: Callable | None = None  # shapes of aux inputs (vlm/audio)
+    encode: Callable | None = None        # enc-dec only: the encoder
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +166,9 @@ def unit_params(cfg: ModelConfig, gen: torch.Generator, n_units: int,
     `init_unit(ParamBuilder)`, as {"u{i}": tree}, or (`stacked`) stacked
     on a leading unit dim, each unit copied into the stack as it is drawn
     so that memory holds one unit beside the stack (gemma3-12b's 47 GB of
-    float32 parameters would not fit twice on an 80 GB card)."""
+    float32 parameters would not fit twice on an 80 GB card). A stack of
+    one unit is a view of it (kimi-k2's one MoE unit holds 34 GB of
+    bfloat16 experts)."""
     out, stack = {}, None
     for i in range(n_units):
         ub = ParamBuilder(gen, cfg.param_dtype)
@@ -160,6 +176,8 @@ def unit_params(cfg: ModelConfig, gen: torch.Generator, n_units: int,
         if not stacked:
             out[f"u{i}"] = ub.params
             continue
+        if n_units == 1:
+            return tree_map(lambda x: x[None], ub.params)
         if stack is None:
             stack = tree_map(lambda x: x.new_empty((n_units,) + x.shape),
                              ub.params)
@@ -193,6 +211,20 @@ def lm_logits(params, cfg: ModelConfig, x):
     return logits
 
 
+def cross_entropy(logits, targets, mask=None):
+    """logits fp32 (B, S, V); targets int (B, S). The gold logit is
+    picked with `gather`, the same value bit for bit as JAX's one-hot
+    contraction (which only keeps a vocab-sharded tensor sharded; one
+    card has no such tensor, and the one-hot would be a second (B, S, V)
+    float32 tensor)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 def heads(cfg: ModelConfig, trunk):
     """(forward, prefill) over `trunk(params, batch) -> (B, S, d)`: the
     logits of every position, and of the last one only (JAX's
@@ -207,17 +239,41 @@ def heads(cfg: ModelConfig, trunk):
     return forward, prefill
 
 
-def run_blocks(block_fn, params_list, x):
-    """block_fn(params_i, x) -> x over per-unit parameter trees (`remat`
-    is a training option: nothing to recompute when serving)."""
+def lm_loss(forward):
+    """loss_fn(params, batch) -> (cross entropy of `forward`'s logits
+    against batch["targets"], {}): the dense, xLSTM, zamba2 and whisper
+    losses, which carry no auxiliary term."""
+    def loss_fn(params, batch):
+        return cross_entropy(forward(params, batch), batch["targets"]), {}
+
+    return loss_fn
+
+
+def run_blocks(block_fn, params_list, x, remat: bool = False):
+    """block_fn(params_i, x) -> x over per-unit parameter trees (JAX's
+    `run_blocks`, and `scan_blocks` over `units`' views of a stacked
+    tree). With `remat` and grad mode on, each unit is recomputed in the
+    backward (JAX's `jax.checkpoint`): its activations are not kept, and
+    every kernel it calls launches again in the recompute. Under
+    `no_grad` (serving) nothing changes. The blocks draw no random
+    numbers, so the RNG state is not stashed."""
+    fn = block_fn
+    if remat and torch.is_grad_enabled():
+        fn = lambda *args: checkpoint(block_fn, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
     for p in params_list:
-        x = block_fn(p, x)
+        x = fn(p, x)
     return x
 
 
 def units(params_blocks, cfg: ModelConfig, n_units: int):
     """Per-unit parameter trees: the `u{i}` subtrees, or views of unit i
-    of the stacked tree (`scan_layers=True`, JAX's `scan_blocks` layout)."""
+    of the stacked tree (`scan_layers=True`, JAX's `scan_blocks` layout).
+    The stacked leaves are split by one `unbind` each, so the backward
+    stacks the units' gradients into the stacked leaf's once (a view per
+    unit would add a full-size zero-padded gradient per unit)."""
     if cfg.scan_layers:
-        return [unstack(params_blocks, i) for i in range(n_units)]
+        split = tree_map(lambda x: x.unbind(0), params_blocks)
+        return [tree_map(lambda parts: parts[i], split)
+                for i in range(n_units)]
     return [params_blocks[f"u{i}"] for i in range(n_units)]

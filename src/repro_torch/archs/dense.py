@@ -86,7 +86,7 @@ def build(cfg: ModelConfig) -> Model:
             mrope_positions = positions[:, None].expand(b_, 3, s)
         x = base.run_blocks(
             lambda p, h: _unit_apply(p, h, positions, mrope_positions),
-            base.units(params["blocks"], cfg, n_units), x)
+            base.units(params["blocks"], cfg, n_units), x, remat=cfg.remat)
         return x[:, cfg.num_patches:] if cfg.num_patches else x
 
     forward, prefill = base.heads(cfg, trunk)
@@ -151,5 +151,6 @@ def build(cfg: ModelConfig) -> Model:
                 "mrope_positions": ((batch_size, 3, s_total), torch.int32)}
 
     return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
+                 loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
                  extra_inputs=extra_inputs)

@@ -56,7 +56,8 @@ def build(cfg: ModelConfig) -> Model:
     def trunk(params, batch):
         x = base.embed_tokens(params, cfg, batch["tokens"])
         return base.run_blocks(_unit_apply,
-                               base.units(params["blocks"], cfg, n_units), x)
+                               base.units(params["blocks"], cfg, n_units), x,
+                               remat=cfg.remat)
 
     forward, prefill = base.heads(cfg, trunk)
 
@@ -108,4 +109,5 @@ def build(cfg: ModelConfig) -> Model:
         return base.lm_logits(params, cfg, x), new_state
 
     return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
+                 loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step)

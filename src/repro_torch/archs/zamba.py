@@ -79,8 +79,10 @@ def build(cfg: ModelConfig) -> Model:
                 h = _mamba_apply(p[f"m{j}"], h)
             return _shared_apply(sh, h, positions)
 
+        # remat covers the units only; the tail blocks run outside it, as
+        # in JAX
         x = base.run_blocks(unit, base.units(params["blocks"], cfg, n_units),
-                            x)
+                            x, remat=cfg.remat)
         for j in range(tail):
             x = _mamba_apply(params[f"tail_{j}"], x)
         return x
@@ -155,4 +157,5 @@ def build(cfg: ModelConfig) -> Model:
         return base.lm_logits(params, cfg, x), state
 
     return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
+                 loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step)

@@ -11,7 +11,10 @@ for APAN, `mailbox/{msg,t,ptr}`; the pipelined
 schedule's snapshot `{read_mem, read_last_update, pending, tick}`; and
 the model zoo's parameter trees (`embed/table`, `final_norm/scale`,
 `blocks/u{i}/b{j}/...` or, stacked, `blocks/b{j}/...` with a leading
-unit dim). Converting from JAX arrays to numpy is the caller's business; nothing here
+unit dim; the MoE family's `dense_{i}/...` and `blocks/.../moe/{router,
+wi, wg, wo}` with (E, d, f) expert leaves; whisper's `dec_pos`,
+`enc_final_norm` and `enc` / `dec` stacks), and back to numpy the port's
+zoo gradients and optimizer states in the same layout. Converting from JAX arrays to numpy is the caller's business; nothing here
 sees a JAX array.
 
 `mdgnn_bundle` / `mdgnn_bundle_from_numpy` carry the {"params", "state"}
@@ -115,7 +118,8 @@ zoo_params_from_numpy = params_from_numpy
 
 
 def zoo_params_to_numpy(params) -> dict:
-    """The zoo parameter tree as numpy arrays, in its own layout."""
+    """A zoo tree of tensors (parameters, gradients, an optimizer state
+    with its int32 step) as numpy arrays, in its own layout."""
     return {k: zoo_params_to_numpy(v) if isinstance(v, dict) else _np(v)
             for k, v in params.items()}
 

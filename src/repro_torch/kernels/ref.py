@@ -133,19 +133,26 @@ def embed_attn_ref(h_self, tab, idx, dt, valid, tw, tb, wq, wk, wv,
 NEG_INF = -1e30
 
 
+# float32 score bytes `flash_attn_ref` forms at once: a larger problem
+# runs a slice of its query groups at a time (each group's softmax is its
+# own). kimi-k2's 64 heads at S = T = 8,192 are 17 GB of scores a tensor,
+# and the dense form keeps three such tensors beside 40 GB of weights.
+REF_SCORE_BYTES = 1 << 31
+
+
 def flash_attn_ref(q, k, v, causal=True, window=None):
     """Dense attention. q: (G, S, D); k, v: (Gkv, T, D) with G % Gkv == 0,
     query group g reading kv group g // (G / Gkv). Scores in float32,
     scaled by 1/sqrt(D) after the product, masked (k_pos <= q_pos when
     causal, k_pos > q_pos - window when windowed) to -1e30; output in
-    q's dtype."""
+    q's dtype. Query groups go a slice at a time when their scores would
+    exceed REF_SCORE_BYTES."""
     d = q.shape[-1]
-    s, t = q.shape[1], k.shape[1]
-    n_rep = q.shape[0] // k.shape[0]
+    g, s, t = q.shape[0], q.shape[1], k.shape[1]
+    n_rep = g // k.shape[0]
     if n_rep > 1:
         k = torch.repeat_interleave(k, n_rep, dim=0)
         v = torch.repeat_interleave(v, n_rep, dim=0)
-    scores = torch.einsum("gsd,gtd->gst", q.float(), k.float()) / (d ** 0.5)
     q_pos = torch.arange(s, device=q.device)[:, None]
     k_pos = torch.arange(t, device=q.device)[None, :]
     valid = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -153,10 +160,19 @@ def flash_attn_ref(q, k, v, causal=True, window=None):
         valid &= k_pos <= q_pos
     if window is not None:
         valid &= k_pos > q_pos - window
-    scores = torch.where(valid[None], scores,
-                         torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("gst,gtd->gsd", probs, v.float()).to(q.dtype)
+    step = max(1, REF_SCORE_BYTES // (4 * s * t))
+    outs = []
+    for g0 in range(0, g, step):
+        sl = slice(g0, g0 + step)
+        scores = torch.einsum("gsd,gtd->gst", q[sl].float(),
+                              k[sl].float()) / (d ** 0.5)
+        scores = torch.where(valid[None], scores,
+                             torch.full((), NEG_INF, device=q.device))
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("gst,gtd->gsd", probs,
+                                 v[sl].float()).to(q.dtype))
+        del scores, probs
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def bf16_excess(got, want32, tol):

@@ -21,14 +21,13 @@ sync).
 run the kernels). Without `--use-kernels` every call takes the
 reference's plain route and launches no kernel, as the JAX CLI runs
 without Pallas kernels. `--zoo <arch> --steps N` runs
-the model zoo's greedy decode loop instead (a ported arch's reduced
-config, batch 2, a 128-slot cache), as the JAX CLI does; decode runs no
+the model zoo's greedy decode loop instead (any of `configs.ARCH_IDS`,
+its reduced config, batch 2, a 128-slot cache; whisper's encoder runs
+first on random frame embeddings), as the JAX CLI does; decode runs no
 kernel (the zoo's kernels run in the prefill, `Model.prefill`):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --zoo zamba2-1.2b \
         --steps 16
-
-The ported archs are `configs.ARCH_IDS`; whisper, arctic and kimi raise.
 
 It keeps the JAX CLI's flags. Flags this port cannot honour yet raise
 NotImplementedError naming the ROADMAP item that ports them, and so does
@@ -118,8 +117,10 @@ def serve_mdgnn(args):
 
 
 def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
-    """Greedy decode of `steps` tokens for a batch of 2 through a ported
-    arch's reduced config, with random parameters from `seed`; prints
+    """Greedy decode of `steps` tokens for a batch of 2 through an arch's
+    reduced config, with random parameters from `seed`; an enc-dec arch
+    (whisper) first encodes random frame embeddings from the same
+    generator into the decode state, as JAX's `serve_zoo` does. Prints
     tokens/s and the device. Returns the (2, steps) generated tokens.
     Raises ValueError when `steps` exceeds the 128-slot cache."""
     from repro_torch.archs.api import get_model
@@ -132,15 +133,16 @@ def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
     dev = resolve_device(device)
     cfg = get_config(arch).reduced()
     model = get_model(cfg)
-    if model.encode is not None:
-        raise NotImplementedError(
-            f"{arch}: the encoder prefill is not ported yet (ROADMAP Queue 1 "
-            f"item 19: whisper)")
-    params = model.init(torch.Generator(dev).manual_seed(seed), dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = model.init(gen, dev)
     tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
     out = []
     with torch.no_grad():
         state = model.init_decode_state(b, cache_len, dev)
+        if model.encode is not None:    # enc-dec (whisper): encoder prefill
+            feats = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                                generator=gen, device=dev).to(cfg.dtype)
+            state["enc_out"] = model.encode(params, feats)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -207,7 +209,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--zoo", default=None,
                     help="run the model zoo's decode loop for this arch "
-                         "(one of configs.ARCH_IDS; the others raise)")
+                         "(one of configs.ARCH_IDS)")
     ap.add_argument("--steps", type=int, default=16,
                     help="decode steps of --zoo")
     ap.add_argument("--device", default=None,

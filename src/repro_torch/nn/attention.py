@@ -5,8 +5,10 @@ Projection weights are 2-D with a fused (n_heads * d_head) output dim, as
 in JAX; activations are reshaped to (B, S, H, D) inside. The long-prefill
 branch, `blockwise_attention`, runs the `flash_attn` kernel
 (`kernels/flash_attn.py`); the JAX package's lax version of it is the
-function whose on-chip form that kernel is. Cross attention (whisper)
-waits for its arch (ROADMAP Queue 1 item 19)."""
+function whose on-chip form that kernel is. With soft-capped scores that
+branch is JAX's lax online softmax written in PyTorch: the Pallas kernel
+takes no cap, so neither kernel does. `cross_attention` is whisper's
+encoder-decoder attention (dense scores)."""
 from __future__ import annotations
 
 import math
@@ -150,19 +152,20 @@ def causal_mask(s: int, t: int, offset: int = 0, window: int | None = None,
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
                         softmax_scale_cap: float | None,
-                        mode: str | None = None):
+                        mode: str | None = None, q_chunk: int = 2048,
+                        kv_chunk: int = 1024):
     """q: (B, S, H, D), k/v: (B, T, KV, D) -> (B, S, H, D) in q.dtype.
 
     The query heads are laid out as (B * H, S, D) and the kv heads as
     (B * KV, T, D), so query head h of batch b reads kv head h // (H / KV)
     of the same b, and the `flash_attn` kernel runs them (the plain
     version for CPU tensors, or with mode="oracle"). The kernel's tiles
-    are its own: JAX's `q_chunk` / `kv_chunk` have no counterpart here
-    (the caller's chunk only decides whether this branch is taken)."""
+    are its own: `q_chunk` / `kv_chunk` are read only by the soft-capped
+    branch (`_capped_blockwise`), which launches no kernel."""
     if softmax_scale_cap is not None:
-        raise NotImplementedError(
-            "soft-capped attention scores are not ported to the flash_attn "
-            "kernel yet (ROADMAP Queue 1 item 19: the softcap branch)")
+        return _capped_blockwise(q, k, v, causal=causal, window=window,
+                                 cap=softmax_scale_cap, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
     b_, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     qf = q.transpose(1, 2).reshape(b_ * h, s, d).contiguous()
@@ -170,6 +173,56 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
     vf = v.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
     out = ops.flash_attn(qf, kf, vf, mode=mode, causal=causal, window=window)
     return out.reshape(b_, h, s, d).transpose(1, 2).to(q.dtype)
+
+
+def _capped_blockwise(q, k, v, *, causal: bool, window: int | None,
+                      cap: float, q_chunk: int, kv_chunk: int):
+    """JAX's lax `blockwise_attention` with tanh-capped scores: q in
+    chunks of `q_chunk`, for each a running max, sum and accumulator over
+    kv chunks of `kv_chunk`, all in float32. No kernel takes a cap (the
+    Pallas `flash_attn` has none), so this is plain PyTorch on every
+    device."""
+    b_, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, t)
+    if s % q_chunk or t % kv_chunk:
+        raise ValueError(f"blockwise_attention: S={s} and T={t} must be "
+                         f"multiples of the chunks {q_chunk} and {kv_chunk}")
+    dev = q.device
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=dev))
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    for iq in range(s // q_chunk):
+        qc = q[:, iq * q_chunk:(iq + 1) * q_chunk].reshape(
+            b_, q_chunk, kv, g, d).float()
+        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b_, kv, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b_, kv, g, q_chunk), device=dev)
+        acc = torch.zeros((b_, kv, g, q_chunk, d), device=dev)
+        for ik in range(t // kv_chunk):
+            kc = k[:, ik * kv_chunk:(ik + 1) * kv_chunk].float()
+            vc = v[:, ik * kv_chunk:(ik + 1) * kv_chunk].float()
+            sc = torch.einsum("bqkgd,btkd->bkgqt", qc, kc) * scale
+            sc = torch.tanh(sc / cap) * cap
+            k_pos = ik * kv_chunk + torch.arange(kv_chunk, device=dev)
+            valid = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                               device=dev)
+            if causal:
+                valid &= k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                valid &= k_pos[None, :] > q_pos[:, None] - window
+            sc = torch.where(valid[None, None, None], sc, neg)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgqt,btkd->bkgqd",
+                                                        p, vc)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KV,G,qc,D)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,qc,KV,G,D)
+    return torch.cat(outs, dim=1).reshape(b_, s, h, d).to(q.dtype)
 
 
 def attention(params, x, positions, *, d_head: int, causal: bool = True,
@@ -181,7 +234,9 @@ def attention(params, x, positions, *, d_head: int, causal: bool = True,
 
     chunk: when set, S >= 2 * chunk, S % chunk == 0 and no attn_mask is
     given, the blockwise branch (the `flash_attn` kernel, routed by
-    `mode`); otherwise dense scores in float32, as in JAX. With
+    `mode`; with `softmax_scale_cap`, the capped online softmax in q
+    chunks of `chunk` and kv chunks of max(chunk // 2, 128), as in JAX);
+    otherwise dense scores in float32, as in JAX. With
     `mrope_sections`, q and k turn by M-RoPE at `mrope_positions`
     (B, 3, S) in place of RoPE at `positions`."""
     q, k, v = _project_qkv(params, x, x, d_head)
@@ -196,7 +251,8 @@ def attention(params, x, positions, *, d_head: int, causal: bool = True,
             and s % chunk == 0):
         out = blockwise_attention(q, k, v, causal=causal, window=window,
                                   softmax_scale_cap=softmax_scale_cap,
-                                  mode=mode)
+                                  mode=mode, q_chunk=chunk,
+                                  kv_chunk=max(chunk // 2, 128))
         return _out_proj(params, out, x.dtype)
     scores = _gqa_scores(q, k)
     if softmax_scale_cap is not None:  # logit soft-capping (gemma-style)
@@ -207,6 +263,20 @@ def attention(params, x, positions, *, d_head: int, causal: bool = True,
         scores = torch.where(mask[None, None, None], scores, neg)
     if attn_mask is not None:
         scores = torch.where(attn_mask[:, None, None], scores, neg)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v, x.dtype)
+    return _out_proj(params, out, x.dtype)
+
+
+def cross_attention(params, x, kv_src, *, d_head: int, src_mask=None):
+    """Encoder-decoder cross attention: queries from x (B, S, d), keys
+    and values from kv_src (B, T, d); src_mask (B, T) bool masks source
+    positions. Dense scores in float32, no RoPE."""
+    q, k, v = _project_qkv(params, x, kv_src, d_head)
+    scores = _gqa_scores(q, k)
+    if src_mask is not None:
+        scores = torch.where(src_mask[:, None, None, None, :], scores,
+                             torch.full((), NEG_INF, device=x.device))
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v, x.dtype)
     return _out_proj(params, out, x.dtype)

@@ -1,5 +1,5 @@
-"""Core layers of the model zoo: rmsnorm, linear, embedding, (gated) MLP
-(counterpart of `repro/nn/layers.py`). Casts sit where the JAX package has
+"""Core layers of the model zoo: rmsnorm, layernorm, linear, embedding,
+(gated) MLP (counterpart of `repro/nn/layers.py`). Casts sit where the JAX package has
 them: norms run in float32 and cast back, the tied unembedding is a
 float32 product, every other product runs in the activations' dtype."""
 from __future__ import annotations
@@ -20,6 +20,21 @@ def rmsnorm(params, x, eps: float = 1e-6):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dtype)
+
+
+def layernorm_init(b: ParamBuilder, name: str, dim: int):
+    sub = b.sub(name)
+    sub.add("scale", (dim,), init="ones")
+    sub.add("bias", (dim,), init="zeros")
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dtype)
 
 
 def linear_init(b: ParamBuilder, name: str, in_dim: int, out_dim: int,

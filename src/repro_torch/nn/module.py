@@ -51,8 +51,10 @@ class ParamBuilder:
                     max(fan_in, 1))
             else:
                 std = scale if scale is not None else 1.0
-            value = (torch.randn(shape, generator=self.gen,
-                                 device=self.device) * std).to(dtype)
+            # scaled in place: one float32 copy of the leaf at a time
+            # (kimi-k2's (384, 7168, 2048) experts are 22.5 GB so)
+            value = torch.randn(shape, generator=self.gen,
+                                device=self.device).mul_(std).to(dtype)
         else:
             raise ValueError(f"unknown init {init!r}")
         self.params[name] = value

@@ -1,5 +1,9 @@
-"""Optimizers (counterpart of `repro/optim`): AdamW with the JAX package's
-formula, on dicts of tensors."""
-from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates
+"""Optimizers and schedules (counterpart of `repro/optim`): AdamW,
+Adafactor and SGD with the JAX package's formulas, on dicts of tensors."""
+from repro_torch.optim.optimizers import (OPTIMIZERS, Optimizer, adafactor,
+                                          adamw, apply_updates,
+                                          clip_by_global_norm, sgd)
+from repro_torch.optim.schedules import cosine_schedule, pres_schedule
 
-__all__ = ["Optimizer", "adamw", "apply_updates"]
+__all__ = ["OPTIMIZERS", "Optimizer", "adafactor", "adamw", "apply_updates",
+           "clip_by_global_norm", "cosine_schedule", "pres_schedule", "sgd"]

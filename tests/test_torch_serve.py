@@ -222,8 +222,7 @@ def test_launch_serve_cli_on_cpu(model, capsys):
 
 def test_launch_serve_cli_refuses_unported_flags():
     from repro_torch.launch import serve as tserve
-    for flags in (["--event-store", "x"],
-                  ["--zoo", "whisper-tiny"], ["--trace-dir", "x"],
+    for flags in (["--event-store", "x"], ["--trace-dir", "x"],
                   ["--metrics-out", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(["--pres", "--use-kernels", "--device", "cpu",

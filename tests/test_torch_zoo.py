@@ -3,8 +3,10 @@ and `ssd_chunk` kernels' plain versions, attention (RoPE and M-RoPE), the
 chunked linear recurrence, mLSTM / sLSTM, and the reduced qwen3-0.6b,
 xlstm-350m, gemma3-12b, qwen2-7b, command-r-plus-104b and qwen2-vl-2b
 (forward, the last-position prefill and decode, both parameter layouts;
-zamba2 is in `test_torch_zamba.py`), plus the kernels' gradients, the
-registry, `serve --zoo` and the archs that are not ported.
+zamba2 is in `test_torch_zamba.py`; the MoE family, whisper and zoo
+training in `test_torch_moe.py`, `test_torch_whisper.py` and
+`test_torch_zoo_train.py`), plus the kernels' gradients, the registry and
+`serve --zoo` for every arch.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; it is held
 against the JAX Pallas kernel in interpret mode and the JAX oracle on the
@@ -19,7 +21,6 @@ kernels are held against the plain versions on the card by
 `chip_smoke.py`."""
 from __future__ import annotations
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -40,7 +41,7 @@ from repro.nn.module import ParamBuilder as JParamBuilder
 
 from repro_torch import bridge
 from repro_torch.archs import api
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.nn import attention, ssm, xlstm
 
@@ -256,13 +257,6 @@ def test_blockwise_attention_matches_jax(window, qc, kc):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
         window=window, softmax_scale_cap=None, q_chunk=qc, kv_chunk=kc)
     _close(got, want, "blockwise_attention")
-
-
-def test_blockwise_attention_softcap_raises():
-    q, k, v = (_t(a) for a in _qkv(np.random.default_rng(1), 1, 64, 2, 2, 8))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attention.blockwise_attention(q, k, v, causal=True, window=None,
-                                      softmax_scale_cap=30.0)
 
 
 @pytest.mark.parametrize("chunk", [None, 64])
@@ -482,7 +476,7 @@ def test_port_init_shapes_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# the serve CLI and what is not ported
+# the serve CLI
 # ---------------------------------------------------------------------------
 
 
@@ -534,20 +528,6 @@ def test_serve_zoo_past_the_cache_raises(monkeypatch):
         tserve.serve_zoo("qwen3-0.6b", 129, device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-
-
-@pytest.mark.parametrize("family", ["moe", "audio"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.get_model(cfg)
-
-
 def test_zoo_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the default device is valid")
@@ -559,9 +539,3 @@ def test_zoo_without_cuda_raises():
     from repro_torch.launch import serve as tserve
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--zoo", "xlstm-350m", "--steps", "1"])
-
-
-def test_zoo_loss_fn_raises():
-    model = api.get_model(get_config("xlstm-350m").reduced())
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss_fn({}, {})
