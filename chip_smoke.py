@@ -140,6 +140,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    then pres_filter; flash_attn with the route that ran, its products'
    TFLOP/s and its share of the bound; embed_attn with its route, the
    fold, the U of its shape and the bound of the form before the fold).
+11. train-config-scan / -scan-std: macro-batch training (train/scan.py,
+   T = 8) of Alg. 2 (its macro step captured as one CUDA graph: the
+   memory stage is the memory_update_table kernel) and Alg. 1 (eager: its
+   memory stage waits for the host) at CONFIG widths on wiki-small, one
+   epoch + evaluate, against the lag-one loop from the same start and
+   generator: the launch counts equal (replays add their census), the
+   negatives of the captured and an eager scan equal the lag-one draws,
+   and under deterministic algorithms the epoch free-running and each
+   macro from the same carry within STEP_TOL, the epoch against the
+   plain versions within the free-running limits; `captured` true for
+   -scan and false for -scan-std; then events/s and the busy share of an
+   epoch of each side by side. train-production-scan: 40 captured steps
+   at PRODUCTION widths (b 1,000, T 8), step ms, the first 3 losses
+   against the lag-one loop's. train-production-store: tgn_pres.
+   PRODUCTION over stream-10m's first 1,000,000 events written by the
+   port's converter into a temporary store (its 1,200,000-node space;
+   d_edge 32 where PRODUCTION names 172): the store's batches equal the
+   in-RAM carve, then 40 steps at b 1,000 through train_phase (the first
+   3 losses against the plain path, peak memory). cli-store: both CLIs
+   with --event-store. cli-obs: the train CLI with --metrics-out,
+   --trace-dir, --trace-steps 4, --scan-chunk 8 and --event-store, the
+   serve CLI with --metrics-out and --topk: the manifests name the card
+   and its power limit, one obs entry a step, only "compiled" in the
+   kernel-dispatch tables, the host spans, the latency histograms and a
+   trace. autotune: every registered kernel tuned at the shapes the
+   model emits at CONFIG widths into a temporary cache (ms beside the
+   plain version's oracle_ms), then a dispatch resolves "compiled" from
+   it. The script requires REPRO_KERNELS_MODE unset.
 
 Every serve, train and zoo phase names the kernels its path must launch;
 any other kernel launched fails it. The launch counters are zeroed just
@@ -156,6 +184,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1329,11 +1358,14 @@ def _report_profile(label, prof, wall_us, what):
     wall time (the profiler's own host overhead is inside that wall
     time)."""
     import torch
-    # device-side entries, without the engine's record_function ranges
-    # (those span their kernels and the gaps between them)
+    # device-side entries, without the record_function ranges of the
+    # engine's and the train step's stages (obs.trace.stage; those span
+    # their kernels and the gaps between them)
+    ranges = ("serve_", "step#", "memory_update", "embed", "loss", "apply")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("serve_")]
+              and not (e.key.startswith(ranges[:2])
+                       or e.key in ranges[2:])]
     busy_us = sum(e.self_device_time_total for e in events)
     PROFILES[label] = {"window": what, "wall_ms": wall_us / 1e3,
                        "busy_ms": busy_us / 1e3,
@@ -1858,6 +1890,424 @@ def cli_csv_phase(label, expect):
     require(len(hist) == 1 and np.isfinite(hist[0]["loss"]),
             f"{label}: bad history {hist}")
     return hist[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: scan macro-batch training, the event store, telemetry, autotune
+# ---------------------------------------------------------------------------
+
+
+def _epoch(engine, cfg, opt, carry, batches, gen, dst_range):
+    """One epoch from `carry` through the scan engine, or, when `engine`
+    is None, through the lag-one loop of `cfg`; device-synced seconds."""
+    import torch
+    from repro_torch.train import loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if engine is None:
+        out = loop.run_epoch(*carry, batches, cfg,
+                             loop.make_train_step(cfg, opt), gen, dst_range)
+    else:
+        out = engine.run_epoch(*carry, batches, gen, dst_range)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _macro_vs_lag_one(cfg, opt, dst_range, worst):
+    """A step hook for ScanEngine: before each macro step, the same T
+    steps through the lag-one step of `cfg` from copies of the carry and
+    of the generator; after it, the worst relative difference of the
+    losses, the logits, the memory table and the first moments goes into
+    `worst` (macro by macro: no difference is carried to the next)."""
+    import torch
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.train import loop
+    from repro_torch.utils.tree import tree_leaves
+    step = loop.make_train_step(cfg, opt)
+    amax = lambda t: float(t.abs().max())
+    rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
+
+    def hook(macro_step):
+        def run(params, opt_state, state, gen, macro, negatives=None):
+            carry = _clone(params, opt_state, state)
+            g = torch.Generator(gen.device)
+            g.set_state(gen.get_state())
+            lag = []
+            for i in range(macro.src.shape[0] - 1):
+                pos = macro.at(i + 1)
+                neg = sample_negatives(g, pos, *dst_range)
+                out = step(*carry, macro.at(i), pos, neg)
+                carry = out[:-1]
+                lag.append(out[-1])
+            out = macro_step(params, opt_state, state, gen, macro,
+                             negatives=negatives)
+            m = out[-1]
+            got = {"loss": rel(m["loss"], torch.stack(
+                       [x["loss"] for x in lag]), 0.0),
+                   "logits": max(rel(m[k], torch.stack(
+                       [x[k] for x in lag]), 1.0)
+                       for k in ("logit_p", "logit_n")),
+                   "memory": rel(out[2]["memory"].mem,
+                                 carry[2]["memory"].mem, 1.0),
+                   "moments": max(amax(a - b) for a, b in zip(
+                       tree_leaves(out[1]["mu"]),
+                       tree_leaves(carry[1]["mu"]))) / max(
+                       max(amax(b) for b in tree_leaves(carry[1]["mu"])),
+                       1e-30)}
+            for k, v in got.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            return out
+        return run
+    return hook
+
+
+def scan_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
+               expect, captured, chunk=8, profile=True):
+    """Macro-batch training (train/scan.py, T = `chunk`) for one epoch and
+    `evaluate` at `cfg`'s widths, against the lag-one loop from the same
+    start and the same generator: the launch counts equal (the graph's
+    replays add their census), the negatives of the captured and of an
+    eager (capture=False) scan equal the lag-one loop's draws, and under
+    deterministic algorithms the epoch free-running and every macro from
+    the same carry (`_macro_vs_lag_one`) within STEP_TOL, and the epoch
+    against the plain versions (kernels_mode="oracle") within the
+    free-running limits. `ScanEngine.captured` must be `captured`. Then a
+    second epoch of each, timed (events/s), and (with `profile`) one
+    epoch of each under torch.profiler (the busy share)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, scan
+
+    scfg = dataclasses.replace(cfg, scan_chunk=chunk)
+    batches = train_s.temporal_batches(batch_size, dev)
+    vb = val_s.temporal_batches(batch_size, dev)
+    steps = len(batches) - 1
+    opt = adamw(1e-3)
+    params = mdgnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    start = (params, opt.init(params), mdgnn.init_state(cfg, dev))
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    eval_step = loop.make_eval_step(cfg)
+    runs = {}
+    for name, engine in (("scan", scan.ScanEngine(scfg, opt)),
+                         ("lag-one", None)):
+        g = gen()
+        ops.reset_launch_counts()
+        (p, o, s, res), secs = _epoch(engine, cfg, opt, _clone(*start),
+                                      batches, g, dst_range)
+        _, vap, _ = loop.evaluate(p, s, vb, cfg, eval_step, g, dst_range)
+        counts = ops.launch_counts()
+        kept = list(engine.negatives) if engine is not None else None
+        (p, o, s, res2), secs2 = _epoch(engine, cfg, opt, (p, o, s),
+                                        batches, g, dst_range)
+        runs[name] = {"counts": counts, "res": res, "val_ap": vap,
+                      "first_epoch_s": secs, "epoch_s": secs2,
+                      "carry": (p, o, s), "engine": engine, "gen": g,
+                      "negatives": kept}
+    eng = runs["scan"]["engine"]
+    check_launches(label, runs["scan"]["counts"], expect)
+    require(runs["scan"]["counts"] == runs["lag-one"]["counts"],
+            f"{label}: launches {runs['scan']['counts']} against the "
+            f"lag-one loop's {runs['lag-one']['counts']}")
+    require(eng.captured is captured,
+            f"{label}: ScanEngine.captured is {eng.captured}, expected "
+            f"{captured} ({eng.eager_reason})")
+    # the negatives of the first epoch: the lag-one loop's draws, in
+    # order, in the captured engine and in an eager one
+    g = gen()
+    want = torch.stack([sample_negatives(g, b, *dst_range).dst
+                        for b in batches[1:]])
+    eager = scan.ScanEngine(scfg, opt, capture=False)
+    eager.run_epoch(*_clone(*start), batches, gen(), dst_range)
+    got = torch.cat(runs["scan"]["negatives"])
+    require(torch.equal(got, want)
+            and torch.equal(torch.cat(eager.negatives), want),
+            f"{label}: the scan's negatives differ from the lag-one draws")
+    # deterministic comparisons
+    worst = {}
+    with _deterministic():
+        free = {}
+        for name, c, engine in (
+                ("scan", cfg, scan.ScanEngine(scfg, opt)),
+                ("lag-one", cfg, None),
+                ("plain", dataclasses.replace(cfg, kernels_mode="oracle"),
+                 None)):
+            g = gen()
+            (p, o, s, res), _ = _epoch(engine, c, opt, _clone(*start),
+                                       batches, g, dst_range)
+            _, vap, _ = loop.evaluate(p, s, vb, c, loop.make_eval_step(c), g,
+                                      dst_range)
+            free[name] = (res, vap, s["memory"].mem)
+        macro = scan.ScanEngine(scfg, opt, step_hook=_macro_vs_lag_one(
+            cfg, opt, dst_range, worst))
+        _epoch(macro, cfg, opt, _clone(*start), batches, gen(), dst_range)
+    rel = lambda a, b: [abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b)]
+    diff = {}
+    for other in ("lag-one", "plain"):
+        r, vap, mem = free[other]
+        diff[other] = {
+            "loss_rel": max(rel([free["scan"][0].loss], [r.loss])),
+            "train_ap": abs(free["scan"][0].ap - r.ap),
+            "val_ap": abs(free["scan"][1] - vap),
+            "memory_table": float((free["scan"][2] - mem).abs().max())}
+    diff["per_macro"] = worst
+    log(f"[{label}] vs the lag-one loop and the plain path: "
+        f"{json.dumps(diff)}")
+    for k, lim in STEP_TOL.items():
+        require(worst.get(k, 0.0) <= lim, f"{label}: a macro's {k} differs "
+                f"from the lag-one steps' by {worst.get(k)} > {lim}")
+    for other in ("lag-one", "plain"):
+        for k in ("train_ap", "val_ap"):
+            require(diff[other][k] <= AP_LIMIT, f"{label}: {k} differs from "
+                    f"the {other} run's by {diff[other][k]} > {AP_LIMIT}")
+    require(diff["lag-one"]["loss_rel"] <= STEP_TOL["loss"],
+            f"{label}: epoch loss differs from the lag-one loop's")
+    summary = {"steps": steps, "batch": batch_size, "chunk": chunk,
+               "captured": eng.captured, "eager_reason": eng.eager_reason,
+               "loss": runs["scan"]["res"].loss,
+               "train_ap": runs["scan"]["res"].ap,
+               "val_ap": runs["scan"]["val_ap"], "vs": diff}
+    for name, r in runs.items():
+        summary[f"{name}_first_epoch_s"] = r["first_epoch_s"]
+        summary[f"{name}_events_per_s"] = steps * batch_size / r["epoch_s"]
+        summary[f"{name}_step_ms"] = r["epoch_s"] / steps * 1e3
+    if profile:
+        for name, r in runs.items():
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                (_, _, _, _), secs = _epoch(r["engine"], cfg, opt,
+                                            r["carry"], batches, r["gen"],
+                                            dst_range)
+            _report_profile(f"{label}-{name}", prof, secs * 1e6,
+                            f"one epoch ({steps} steps)")
+            summary[f"{name}_busy_share"] = \
+                PROFILES[f"{label}-{name}"]["busy_share"]
+    brief = {k: v for k, v in summary.items() if k != "vs"}
+    log(f"[{label}] {json.dumps(brief)}")
+    require(np.isfinite(summary["loss"]), f"{label}: loss not finite")
+    return summary
+
+
+def production_scan_phase(label, cfg, train_s, dst_range, dev, *,
+                          batch_size, n_batches, expect, chunk=8):
+    """Macro-batch training at PRODUCTION widths: `n_batches - 1` steps at
+    `batch_size`, captured, a first run (it captures) and a second, timed
+    (step ms); the first 3 losses against the lag-one loop's kernel route
+    from the same start and generator."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, scan
+    cfg = dataclasses.replace(cfg, obs_metrics=True)
+    scfg = dataclasses.replace(cfg, scan_chunk=chunk)
+    batches = train_s.temporal_batches(batch_size, dev)[:n_batches]
+    steps = len(batches) - 1
+    opt = adamw(1e-3)
+    params = mdgnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    start = (params, opt.init(params), mdgnn.init_state(cfg, dev))
+    eng = scan.ScanEngine(scfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    g = torch.Generator(dev).manual_seed(0)
+    (p, o, s, res), first = _epoch(eng, cfg, opt, _clone(*start), batches, g,
+                                   dst_range)
+    counts = ops.launch_counts()
+    check_launches(label, counts, expect)
+    require(counts[memory_stage_kernel(cfg)] == steps and eng.captured,
+            f"{label}: {counts} in {steps} steps, captured {eng.captured}")
+    (_, _, _, res2), secs = _epoch(eng, cfg, opt, (p, o, s), batches, g,
+                                   dst_range)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    lag = loop.run_epoch(*_clone(*start), batches[:4], cfg,
+                         loop.make_train_step(cfg, opt),
+                         torch.Generator(dev).manual_seed(0), dst_range)[-1]
+    got, want = res.obs["series"]["loss"][:3], lag.obs["series"]["loss"]
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want)]
+    summary = {"steps": steps, "batch": batch_size, "chunk": chunk,
+               "captured": eng.captured, "first_run_s": first,
+               "step_ms": secs / steps * 1e3,
+               "train_events_per_s": steps * batch_size / secs,
+               "loss": res.loss, "peak_mem_mb": peak_mb,
+               "first_losses": got, "lag_one_first_losses": want}
+    log(f"[{label}] {json.dumps(summary)}")
+    require(np.isfinite(res.loss) and np.isfinite(res2.loss)
+            and max(rel) <= 1e-4, f"{label}: first losses {got} against "
+            f"the lag-one loop's {want}")
+    return summary
+
+
+def store_phase(label, cfg, dev, *, n_events, batch_size, n_batches,
+                expect):
+    """tgn_pres.PRODUCTION over an on-disk store of stream-10m's first
+    `n_events` events (its 1,200,000-node space), written by the port's
+    converter into a temporary directory: the store's first batches
+    against the same events carved in RAM (bit for bit), then
+    `train_phase` on the store's batches (the first 3 losses against the
+    plain path, step ms, peak memory)."""
+    import tempfile
+    import torch
+    from repro_torch.graph.store import EventStore
+    from repro_torch.launch import convert_events
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        convert_events.main(["--synthetic", "stream-10m", "--n-events",
+                             str(n_events), "--out", tmp])
+        wrote = time.perf_counter() - t0
+        est = EventStore.open(tmp)
+        c = dataclasses.replace(cfg, n_nodes=est.num_nodes,
+                                d_edge=est.feat_dim, event_store=tmp)
+        head = est.stream().slice(0, batch_size * n_batches)
+        ram = head.materialize()
+        carve = {}
+        for name, src in (("store", head), ("ram", ram)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carve[name] = src.temporal_batches(batch_size, dev)
+            torch.cuda.synchronize()
+            carve[f"{name}_ms_a_batch"] = ((time.perf_counter() - t0) * 1e3
+                                           / len(carve[name]))
+        for a, b in zip(carve.pop("store"), carve.pop("ram")):
+            require(all(torch.equal(getattr(a, f), getattr(b, f))
+                        for f in ("src", "dst", "t", "feat", "mask")),
+                    f"{label}: a store batch differs from the in-RAM one")
+        log(f"[{label}] carving a batch: {json.dumps(carve)}")
+        counts, _, summary = train_phase(
+            label, c, head, None, est.dst_range(), dev,
+            batch_size=batch_size, n_batches=n_batches, expect=expect,
+            oracle_steps=3)
+        summary.update(n_nodes=est.num_nodes, d_edge=est.feat_dim,
+                       store_mb=est.nbytes / 1e6, write_s=wrote, **carve)
+    return summary
+
+
+def cli_store_phase(label, expect):
+    """Both CLIs with --event-store, on wiki-small converted by the port's
+    converter (one epoch; a replay of 2,000 events)."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import convert_events
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    model = ["--model", "tgn", "--pres", "--use-kernels"]
+    with tempfile.TemporaryDirectory() as tmp:
+        convert_events.main(["--dataset", "wiki-small", "--out", tmp])
+        hist = cli_phase(f"{label}-train", model + ["--event-store", tmp,
+                                                    "--epochs", "1"], expect)
+        ops.reset_launch_counts()
+        rep = serve_cli.main(model + ["--event-store", tmp, "--max-events",
+                                      "2000", "--topk", "5"])
+        check_launches(f"{label}-serve", ops.launch_counts(), SERVE_KERNELS)
+    require(not rep.post_warmup_traces and 0.0 <= rep.online_ap <= 1.0,
+            f"{label}: serve CLI report {rep}")
+    return {"train": hist, "serve_events_per_s": rep.events_per_sec,
+            "serve_ap": rep.online_ap}
+
+
+def cli_obs_phase(label, card, expect, serve_expect):
+    """The train CLI with --metrics-out, --trace-dir, --trace-steps 4,
+    --scan-chunk 8 and --event-store, then the serve CLI with
+    --metrics-out and --topk: the manifest names the card and its power
+    limit, every epoch's series has an entry a step, the kernel-dispatch
+    table shows only "compiled" for the path's kernels, the spans and the
+    histograms are there, and the trace directory holds a trace."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import convert_events
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import sink
+    model = ["--model", "tgn", "--pres", "--use-kernels"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        convert_events.main(["--dataset", "wiki-small", "--out",
+                             str(tmp / "store")])
+        ops.reset_dispatch_log()
+        hist = cli_phase(f"{label}-train", model + [
+            "--event-store", str(tmp / "store"), "--epochs", "1",
+            "--scan-chunk", "8", "--metrics-out", str(tmp / "train.jsonl"),
+            "--trace-dir", str(tmp / "trace"), "--trace-steps", "4"], expect)
+        ops.reset_dispatch_log()
+        ops.reset_launch_counts()
+        serve_cli.main(["--dataset", "wiki-small"] + model + [
+            "--max-events", "2000", "--topk", "5", "--metrics-out",
+            str(tmp / "serve.jsonl")])
+        check_launches(f"{label}-serve", ops.launch_counts(), serve_expect)
+        train = sink.read_runlog(tmp / "train.jsonl")
+        serve = sink.read_runlog(tmp / "serve.jsonl")
+        trace = tmp / "trace" / "trace.json"
+        trace_mb = trace.stat().st_size / 1e6 if trace.is_file() else 0.0
+    kinds = lambda recs: {r["kind"]: r for r in recs}
+    tr, sv = kinds(train), kinds(serve)
+    for name, recs, want in (("train", tr, expect),
+                             ("serve", sv, serve_expect)):
+        require(recs["manifest"]["meta"].get("gpu") == card,
+                f"{label}: the {name} manifest names "
+                f"{recs['manifest']['meta'].get('gpu')!r}, not {card!r}")
+        table = recs.get("kernel_dispatch", {}).get("table", {})
+        require(sorted(table) == sorted(want)
+                and all(set(m) == {"compiled"} for m in table.values()),
+                f"{label}: the {name} kernel-dispatch table is {table}")
+    require("spans" in tr and {"prefetch_wait", "store_window"}
+            <= set(tr["spans"]["summary"]),
+            f"{label}: the train run-log's spans are {tr.get('spans')}")
+    ep = tr["epoch"]
+    require(all(len(v) == ep["steps"] for v in ep["series"].values())
+            and ep["steps"] > 0 and ep.get("scan_captured") is True,
+            f"{label}: the epoch's series do not have one entry a step")
+    rec = sv["serve"]
+    require(sum(rec["ingest_hist"]["counts"]) == rec["ingest_hist"]["n"] > 0
+            and sum(rec["query_hist"]["counts"]) == rec["query_hist"]["n"]
+            > 0, f"{label}: the serve histograms are empty")
+    require(trace_mb > 0, f"{label}: no trace written")
+    out = {"train": hist, "steps": ep["steps"], "trace_mb": trace_mb,
+           "train_spans": tr["spans"]["summary"],
+           "ingest_p99_ms": rec["ingest_p99_ms"]}
+    log(f"[{label}] {json.dumps(out)}")
+    return out
+
+
+def autotune_phase(label, dev):
+    """Every registered kernel tuned at the shapes the model emits at
+    CONFIG widths (kernels/autotune.py: train steps of each route, a
+    top-k, reduced qwen3 and xlstm prefills) into a temporary cache; each
+    entry's ms beside its plain version's (oracle_ms). Then a dispatch
+    without a pinned mode resolves "compiled" from the cache."""
+    import tempfile
+    from repro_torch.kernels import autotune, ops
+    saved = autotune.CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        autotune.CACHE_DIR = pathlib.Path(tmp)
+        ops.reset_execution_policy()
+        try:
+            shapes = autotune.emitted_shapes(dev)
+            rows = autotune.sweep(dev, shapes=shapes)
+            for r in rows:
+                log(f"[{label}] {r['kernel']} {r['mode']} ms={r['ms']:.5f} "
+                    f"oracle_ms={r.get('oracle_ms')} {r['sig']}")
+            require(sorted({r["kernel"] for r in rows}) ==
+                    sorted(ops.REGISTRY)
+                    and all(r["mode"] == "compiled" for r in rows),
+                    f"{label}: entries "
+                    f"{[(r['kernel'], r['mode']) for r in rows]}")
+            (name, _), (args, _) = next(iter(shapes.items()))
+            mode = ops.resolve_mode(None, dev, name, args)
+            require(autotune.lookup("cuda", name, args) is not None
+                    and mode == "compiled",
+                    f"{label}: {name} resolved {mode} from the cache")
+            pol = ops.execution_policy()
+            require(pol["autotune_entries"] == len(rows),
+                    f"{label}: policy {pol}")
+        finally:
+            autotune.CACHE_DIR = saved
+            ops.reset_execution_policy()
+    return {r["kernel"] + " " + r["sig"]: {"ms": r["ms"],
+                                           "oracle_ms": r.get("oracle_ms")}
+            for r in rows}
 
 
 def op_phase(label, name, inputs):
@@ -2606,8 +3056,10 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-config-plain", "cli-new", "cli-time", "cli-jodie",
           "cli-plain", "cli-ckpt", "cli-csv", "train-production-pipe", "train-production-dense",
           "train-production-apan", "train-production-rnn",
-          "train-production-jodie") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
-              "train-zoo-reduced", "cli-zoo")
+          "train-production-jodie", "train-config-scan",
+          "train-production-scan", "train-production-store", "cli-store",
+          "cli-obs") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
+              "train-zoo-reduced", "cli-zoo", "autotune")
 
 
 def kernel_row(name, spec, phase, inputs, counts):
@@ -2725,6 +3177,10 @@ def main(argv=None):
         print(f"chip_smoke: the port's sources are missing under {SRC}",
               file=sys.stderr)
         return 2
+    # every phase holds the kernels against their plain versions by mode;
+    # a pinned mode for the whole process would void that
+    require(not os.environ.get("REPRO_KERNELS_MODE"),
+            "REPRO_KERNELS_MODE is set; chip_smoke.py runs with it unset")
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2776,9 +3232,9 @@ def main(argv=None):
     # the paper model's configs, cut in scale only: n_nodes from the graph
     # that runs them (wiki-small's 1,000; stream-small's 120,000 where
     # PRODUCTION names 1,048,576), d_edge from the dataset (16 in both;
-    # PRODUCTION names 172), no event store (event_store=None: the port has
-    # none yet, ROADMAP Queue 1 item 17), and the kernels on
-    # (use_kernels=True); every width is the published one
+    # PRODUCTION names 172), in RAM (event_store=None; train-production-
+    # store runs PRODUCTION over its own store's node space), and the
+    # kernels on (use_kernels=True); every width is the published one
     cfg = rp(tgn_pres.CONFIG, n_nodes=wiki.num_nodes, d_edge=wiki.feat_dim,
              use_kernels=True)
     sspec = datasets.STREAM_SPECS["stream-small"]
@@ -2974,6 +3430,41 @@ def main(argv=None):
     if "train-production-jodie" in only:
         train("train-production-jodie", rp(pcfg, **jodie), "production",
               ("memory_update_table",))
+    # 11. macro-batch training (T 8): Alg. 2 captured as a CUDA graph a
+    # macro, Alg. 1 eager (its memory stage waits for the host)
+    if "train-config-scan" in only:
+        train_sum["train-config-scan"] = timed(
+            "train-config-scan", scan_phase, "train-config-scan", cfg,
+            train_s, val_s, wiki_dst, dev, batch_size=500, expect=pres_path,
+            captured=True)
+        train_sum["train-config-scan-std"] = timed(
+            "train-config-scan-std", scan_phase, "train-config-scan-std",
+            rp(cfg, use_pres=False), train_s, val_s, wiki_dst, dev,
+            batch_size=500, expect=std_path, captured=False, profile=False)
+    if "train-production-scan" in only:
+        train_sum["train-production-scan"] = timed(
+            "train-production-scan", production_scan_phase,
+            "train-production-scan", pcfg, head, s_dst, dev,
+            batch_size=1000, n_batches=41, expect=pres_path)
+        got = train_sum["train-production-scan"]["step_ms"]
+        lag = train_sum.get("train-production-pres", {})
+        log(f"[train-production-scan] step ms {got:.3f} beside "
+            f"train-production-pres's median {lag.get('step_ms_median')}")
+    if "train-production-store" in only:
+        # tgn_pres.PRODUCTION as published but for the store's node space
+        # (1,200,000 where it names 1,048,576), its 32 edge features (172
+        # named) and stream-10m cut to its first 1,000,000 events
+        train_sum["train-production-store"] = timed(
+            "train-production-store", store_phase, "train-production-store",
+            rp(tgn_pres.PRODUCTION, use_kernels=True), dev,
+            n_events=1_000_000, batch_size=1000, n_batches=41,
+            expect=pres_path)
+    if "cli-store" in only:
+        train_sum["cli-store"] = timed("cli-store", cli_store_phase,
+                                       "cli-store", pres_path)
+    if "cli-obs" in only:
+        train_sum["cli-obs"] = timed("cli-obs", cli_obs_phase, "cli-obs",
+                                     card, pres_path, SERVE_KERNELS)
 
     # 9. the model zoo at full width: prefill (the zoo's kernels) and
     # decode, then the decode CLI for every ported arch
@@ -3002,6 +3493,9 @@ def main(argv=None):
             zoo_sum[f"cli-zoo-{arch}"] = timed(
                 f"cli-zoo-{arch}", cli_zoo_phase, f"cli-zoo-{arch}", arch,
                 16)
+    autotune_sum = {}
+    if "autotune" in only:
+        autotune_sum = timed("autotune", autotune_phase, "autotune", dev)
 
     # 10. kernels on the inputs their phases handed them: the rows of the
     # CONFIG phases and of ZOO_LINE's in the result line, the others'
@@ -3035,7 +3529,7 @@ def main(argv=None):
             {"card": card, "kernels": rows, "more_kernel_rows": more_rows,
              "zoo_kernel_rows": zoo_rows,
              "serve": serve_sum, "train": train_sum, "zoo": zoo_sum,
-             "train_zoo": train_zoo_sum,
+             "train_zoo": train_zoo_sum, "autotune": autotune_sum,
              "profiles": PROFILES, "seconds": seconds},
             indent=1))
     print(json.dumps({"kernels": rows}))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +192,7 @@ def save_checkpoint(path: str, tree) -> None:
     np.savez(buf, **{f"leaf_{i}": _as_numpy(x)
                      for i, x in enumerate(leaves)})
     manifest = pack_manifest({"treedef": treedef, "n_leaves": len(leaves)})
-    with open(path, "wb") as f:
+    with obs_trace.span("checkpoint_save"), open(path, "wb") as f:
         f.write(len(manifest).to_bytes(8, "little"))
         f.write(manifest)
         f.write(buf.getvalue())
@@ -203,7 +204,7 @@ def read_checkpoint(path: str, like_tree):
     leaf's shape are checked against the template first, and a mismatch
     (a checkpoint written under another model config) raises ValueError
     with the JAX module's messages."""
-    with open(path, "rb") as f:
+    with obs_trace.span("checkpoint_load"), open(path, "rb") as f:
         mlen = int.from_bytes(f.read(8), "little")
         manifest = unpack_manifest(f.read(mlen))
         data = np.load(io.BytesIO(f.read()))

@@ -3,10 +3,10 @@
 
 `CONFIG` is the synthetic-benchmark scale. `PRODUCTION` is the node and
 feature scale of the JAX package's distributed dry-run; it streams its
-events from an on-disk store (`event_store`), which the port does not
-have yet, so `mdgnn.check_supported` refuses it as it stands (ROADMAP
-Queue 1 item 17). `chip_smoke.py` runs its widths with `event_store=None`
-on a smaller graph."""
+events from an on-disk store (`event_store`, graph/store.py; written by
+`python -m repro_torch.launch.convert_events --synthetic stream-10m`).
+`chip_smoke.py` runs it over a cut of that store (train-production-store)
+and its widths on a smaller in-RAM graph."""
 from repro_torch.models.mdgnn import MDGNNConfig
 
 CONFIG = MDGNNConfig(

@@ -3,8 +3,9 @@
 
 `generate` builds the in-RAM JODIE-style streams of `SPECS`; `stream_chunk`
 is the stateless hashed power-law generator behind `STREAM_SPECS`, whose
-events [lo, hi) depend on nothing but (spec, seed, lo, hi); `node_labels`
-the labels of Table 2's node classification."""
+events [lo, hi) depend on nothing but (spec, seed, lo, hi), and
+`write_stream_spec` writes it into an on-disk event store chunk by chunk;
+`node_labels` the labels of Table 2's node classification."""
 from __future__ import annotations
 
 import dataclasses
@@ -163,6 +164,27 @@ def stream_events(spec: StreamSpec, seed: int, n_events: int) -> EventStream:
     """The first `n_events` of `spec` as an in-RAM EventStream."""
     src, dst, t, feat = stream_chunk(spec, seed, 0, n_events)
     return EventStream(src, dst, t, feat, spec.num_nodes)
+
+
+def write_stream_spec(spec: StreamSpec, path, seed: int = 0,
+                      chunk_events: int = 1 << 20,
+                      n_events: int | None = None):
+    """Generate `spec` straight into an on-disk event store at `path`,
+    `chunk_events` events an append (bounded memory at any size; the
+    bytes do not depend on the chunking). `n_events` cuts the stream to
+    its first events (exact: the generator is counter-based), keeping
+    the node space. Returns the opened `EventStore`."""
+    from repro_torch.graph import store as store_lib
+    n = spec.n_events if n_events is None else min(n_events, spec.n_events)
+    meta = {"generator": "stream_power_law", "seed": seed,
+            "n_users": spec.n_users, "n_items": spec.n_items,
+            "exponent": spec.exponent, "noise": spec.noise}
+    with store_lib.StoreWriter(path, num_nodes=spec.num_nodes,
+                               feat_dim=max(spec.feat_dim, 1),
+                               meta=meta) as w:
+        for lo in range(0, n, chunk_events):
+            w.append(*stream_chunk(spec, seed, lo, min(lo + chunk_events, n)))
+    return store_lib.EventStore.open(path)
 
 
 def node_labels(stream: EventStream, spec: SyntheticSpec, seed: int = 0):

@@ -2,8 +2,10 @@
 `repro/graph/events.py`): `EventBatch` holds one padded temporal batch as
 tensors, `EventStream` the host-side chronological stream as numpy arrays
 (with the chronological split, the temporal-batch carve of training and
-its background-thread prefetch), the loader of the public JODIE CSV
-format, plus the serving replay's arrival-clock helpers (numpy copies)."""
+its background-thread prefetch), the lag-one macro-batches of scan
+training (`stack_batches`, `iter_macro_batches`), the loader of the public
+JODIE CSV format, plus the serving replay's arrival-clock helpers (numpy
+copies)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,14 +32,23 @@ class EventBatch:
 
     @staticmethod
     def from_numpy(src, dst, t, feat, mask, device) -> "EventBatch":
-        """Move numpy columns to `device` (node ids as int64 indices)."""
-        as_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
-                                             device=device)
+        """Move numpy columns to `device` (node ids as int64 indices). A
+        read-only column (a store's memory map) is copied first."""
+        def as_t(a, dt):
+            a = np.asarray(a)
+            if not a.flags.writeable:
+                a = np.array(a)
+            return torch.as_tensor(a, dtype=dt, device=device)
         return EventBatch(src=as_t(src, torch.int64),
                           dst=as_t(dst, torch.int64),
                           t=as_t(t, torch.float32),
                           feat=as_t(feat, torch.float32),
                           mask=as_t(mask, torch.bool))
+
+    def at(self, i: int) -> "EventBatch":
+        """Batch i of a stacked (T, b, ...) macro-batch (views)."""
+        return EventBatch(self.src[i], self.dst[i], self.t[i], self.feat[i],
+                          self.mask[i])
 
 
 @dataclasses.dataclass
@@ -137,11 +149,9 @@ class PrefetchIterator:
     most `depth` items, so batch preparation overlaps the consumer's
     device work. An exception of the source is re-raised at the
     consumer's next `__next__`; `close()`, exhaustion, or garbage
-    collection stops the producer.
-
-    The JAX version times the consumer's waits as an `obs` trace span
-    ("prefetch_wait"); the port has no `obs` layer yet (ROADMAP Queue 1
-    item 14), so nothing is timed here."""
+    collection stops the producer. The consumer's waits are the host span
+    "prefetch_wait" (obs.trace): a large total there means the producer
+    is the bottleneck."""
 
     _DONE = object()
 
@@ -164,7 +174,8 @@ class PrefetchIterator:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        item = self._queue.get()
+        with obs_trace.span("prefetch_wait"):
+            item = self._queue.get()
         if item is self._DONE:
             self._stop.set()
             raise StopIteration
@@ -180,6 +191,43 @@ class PrefetchIterator:
 def prefetch(source: Iterable, depth: int = 2) -> Iterator:
     """Background-thread prefetch of `depth` items from `source`."""
     return PrefetchIterator(source, depth)
+
+
+def stack_batches(batches: "list[EventBatch]") -> EventBatch:
+    """Stack T same-shape temporal batches into one (T, b, ...) macro-batch
+    (the input of scan training, train/scan.py)."""
+    if not batches:
+        raise ValueError("stack_batches needs at least one batch")
+    return EventBatch(*(torch.stack([getattr(b, f) for b in batches])
+                        for f in ("src", "dst", "t", "feat", "mask")))
+
+
+def iter_macro_batches(source: Iterable, chunk: int) -> Iterator[EventBatch]:
+    """Group consecutive temporal batches into lag-one macro-batches of up
+    to `chunk + 1` batches, overlapping by exactly one: the last batch of
+    macro k is the first of macro k + 1, since a stack of n batches drives
+    n - 1 lag-one steps. K batches give ceil((K - 1) / chunk) macros
+    covering all K - 1 steps, the tail one shorter; a single batch gives
+    none. A source with `close()` (a prefetch iterator) is closed."""
+    if chunk < 1:
+        raise ValueError(f"scan chunk must be >= 1, got {chunk}")
+    it = iter(source)
+    try:
+        buf = [next(it)]
+    except StopIteration:
+        return
+    try:
+        for batch in it:
+            buf.append(batch)
+            if len(buf) == chunk + 1:
+                yield stack_batches(buf)
+                buf = [buf[-1]]
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+    if len(buf) > 1:
+        yield stack_batches(buf)
 
 
 def poisson_arrival_clock(n: int, rate: float, seed: int = 0) -> np.ndarray:

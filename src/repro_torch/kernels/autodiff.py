@@ -144,17 +144,24 @@ def table_vjp(forward, update_ref):
             res = [None] * 14
             for i in (4, 8, 9, 10, 11, 12, 13):
                 res[i] = got.get(i)
+            # masks by arithmetic, not boolean indexing, so the backward
+            # waits for nothing on the host (a CUDA graph of the train step
+            # records it: train/scan.py); the sums are the same numbers
+            written = None
+            if need[2] or need[3]:
+                written = torch.zeros(n + 1, dtype=torch.bool,
+                                      device=wi.device)
+                written.index_fill_(0, torch.where(sel, wi, n), True)
+                written = written[:n]
             if need[2]:
-                g_tab = g_table.clone()
-                g_tab[wi[sel]] = 0
+                g_tab = torch.where(written[:, None], zero, g_table)
                 gi = gather_idx.long()
                 ok = gi < n
-                g_tab.index_add_(0, gi[ok], got[1][ok])
+                g_tab.index_add_(0, torch.clamp(gi, max=n - 1),
+                                 torch.where(ok[:, None], got[1], zero))
                 res[2] = g_tab
             if need[3]:
-                g_lt = g_last_t.clone()
-                g_lt[wi[sel]] = 0
-                res[3] = g_lt
+                res[3] = torch.where(written, zero, g_last_t)
             if need[7]:
                 res[7] = torch.where(sel, g_last_t[wic], zero)
             return tuple(res)

@@ -1,24 +1,37 @@
-"""Kernel registry and dispatch (counterpart of `repro/kernels/ops.py`,
-cut down to the kernels ported so far).
+"""Kernel registry, dispatch and execution policy (counterpart of
+`repro/kernels/ops.py`).
 
-`dispatch(name, ..., mode=)` resolves the execution mode with precedence
-per-call `mode=` (callers forward `cfg.kernels_mode`) > backend default:
+`dispatch(name, ...)` resolves the execution mode with precedence
+per-call `mode=` (callers forward `cfg.kernels_mode`) > the
+`REPRO_KERNELS_MODE` environment variable > the autotune cache
+(`kernels/autotune.py`, keyed by backend, kernel and shape signature) >
+the default for the tensors' device:
 
-    auto       the CUDA kernel for CUDA tensors, the plain version for CPU
-               tensors
+    auto       fall through to the next rule; the default is the CUDA
+               kernel for CUDA tensors, the plain version for CPU tensors
     compiled   the CUDA kernel (raises on CPU tensors)
     oracle     the plain PyTorch version on any device; this is how
                chip_smoke.py holds a kernel against its plain version
     interpret  raises: a CUDA kernel has no interpreter
 
-There is no environment variable and no autotune cache yet. Each kernel
-module keeps an integer launch count, incremented only where it launches
-its CUDA kernel; `launch_counts` / `reset_launch_counts` read and clear
-them (`reset_launch_counts` also clears `flash_attn`'s count by route).
-A CUDA graph's replay calls no wrapper: its owner takes the counters'
-change across the capture (`launch_census`, `launches_since`) and adds
-it back at every replay (`add_launches`), so the counts still say how
-many times each kernel ran.
+The plain version runs on a CUDA tensor only where the caller pins it
+(`mode=`, `cfg.kernels_mode` or the environment variable): a cache entry
+that names "oracle" for a CUDA tensor raises, and `autotune.record`
+refuses to write one. The environment variable, the backend and the
+cache file are read once per process; `reset_execution_policy` drops
+them and `execution_policy` reports them. `DISPATCH_LOG` counts each
+(kernel, resolved mode) at every Python dispatch: a CUDA graph dispatches
+once, at capture, as JAX's log counts once a trace; an eager step counts
+every call, where JAX counts once per compilation. The keys, not the
+counts, are what two runs compare.
+
+Each kernel module keeps an integer launch count, incremented only where
+it launches its CUDA kernel; `launch_counts` / `reset_launch_counts` read
+and clear them (`reset_launch_counts` also clears `flash_attn`'s count by
+route). A CUDA graph's replay calls no wrapper: its owner takes the
+counters' change across the capture (`launch_census`, `launches_since`)
+and adds it back at every replay (`add_launches`), so the counts still
+say how many times each kernel ran.
 
 `dispatch` is the raw route. The named wrappers below it are what the
 models call: `gru_cell`, `memory_update_table`, `embed_attn`,
@@ -29,14 +42,16 @@ differentiates through the kernels; `link_score` (serving's top-k only)
 is the raw route."""
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import os
 from types import ModuleType
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.kernels import autodiff
+from repro_torch.kernels import autodiff, autotune
 from repro_torch.kernels import embed_attn as _ea
 from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import gru_cell as _gru
@@ -50,6 +65,53 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as _ssd
 
 MODES = ("auto", "compiled", "interpret", "oracle")
+ENV_VAR = "REPRO_KERNELS_MODE"
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown kernel execution mode {mode!r}; valid "
+                         f"modes: {', '.join(MODES)} (per-call mode=, "
+                         f"cfg.kernels_mode, or the {ENV_VAR} env var)")
+
+
+@functools.lru_cache(maxsize=None)
+def backend() -> str:
+    """"cuda" where a card is visible, else "cpu" (once per process)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+@functools.lru_cache(maxsize=None)
+def _env_mode() -> str | None:
+    """REPRO_KERNELS_MODE, validated and cached; unset or "auto" -> None."""
+    raw = os.environ.get(ENV_VAR, "").strip().lower()
+    if not raw or raw == "auto":
+        return None
+    _check_mode(raw)
+    return raw
+
+
+def _device_default(device_type: str) -> str:
+    return "compiled" if device_type == "cuda" else "oracle"
+
+
+def reset_execution_policy() -> None:
+    """Drop every per-process policy memo (backend, env mode, autotune
+    file), for tests that flip the env var or swap the cache."""
+    backend.cache_clear()
+    _env_mode.cache_clear()
+    autotune.clear_cache()
+
+
+def execution_policy() -> dict:
+    """The resolved execution policy, for logs and run manifests."""
+    return {
+        "backend": backend(),
+        "env_mode": _env_mode(),
+        "default_mode": _env_mode() or _device_default(backend()),
+        "autotune_entries": autotune.n_entries(backend()),
+        "autotune_cache": str(autotune.cache_path(backend())),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,26 +168,62 @@ def get_kernel(name: str) -> KernelSpec:
                        f"{sorted(REGISTRY)}") from None
 
 
-def resolve_mode(mode: str | None, device) -> str:
-    """The concrete mode ("compiled" or "oracle") for tensors on `device`."""
-    mode = mode or "auto"
-    if mode not in MODES:
-        raise ValueError(f"unknown kernel execution mode {mode!r}; valid "
-                         f"modes: {', '.join(MODES)}")
+def resolve_mode(mode: str | None, device, name: str | None = None,
+                 args=()) -> str:
+    """The concrete mode ("compiled" or "oracle") for kernel `name` on
+    `args`, tensors on `device`: per-call > env var > autotune cache >
+    the device's default."""
+    if mode is not None and mode != "auto":
+        _check_mode(mode)
+    else:
+        mode = _env_mode()
+    device = torch.device(device)
+    if (mode is None and name is not None
+            and autotune.n_entries(device.type)):
+        sel = autotune.lookup(device.type, name, args)
+        if sel is not None:
+            mode = sel.get("mode")
+            _check_mode(mode)
+            if mode == "oracle" and device.type == "cuda":
+                raise ValueError(
+                    f"the autotune cache names the plain version for "
+                    f"{name} on CUDA tensors "
+                    f"({autotune.cache_path(device.type)}); the plain "
+                    f"version runs on the card only when the caller pins "
+                    f"it (mode=, cfg.kernels_mode or {ENV_VAR})")
+    if mode is None or mode == "auto":
+        mode = _device_default(device.type)
     if mode == "interpret":
         raise NotImplementedError(
             "kernels_mode='interpret' runs Pallas bodies op by op; the CUDA "
             "kernels have no interpreter (use 'oracle' for the plain version)")
-    if mode == "auto":
-        return "compiled" if device.type == "cuda" else "oracle"
     return mode
+
+
+# (kernel, resolved mode) -> dispatch count since process start or the last
+# reset_dispatch_log; the obs sink stamps it into every run-log epilogue
+DISPATCH_LOG: collections.Counter = collections.Counter()
+
+
+def dispatch_log() -> dict:
+    """{kernel: {mode: dispatch_count}}."""
+    out: dict = {}
+    for (name, mode), cnt in sorted(DISPATCH_LOG.items()):
+        out.setdefault(name, {})[mode] = cnt
+    return out
+
+
+def reset_dispatch_log() -> None:
+    DISPATCH_LOG.clear()
 
 
 def dispatch(name: str, *args, mode: str | None = None, **kw):
     """Run kernel `name` on `args` in the resolved mode (the device is that
     of the first argument)."""
     spec = get_kernel(name)
-    if resolve_mode(mode, args[0].device) == "oracle":
+    mode = resolve_mode(mode, args[0].device, name, args)
+    DISPATCH_LOG[(name, mode)] += 1
+    if mode == "oracle":
         return spec.ref(*args, **kw)
     return spec.cuda(*args, **kw)
 

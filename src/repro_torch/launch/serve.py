@@ -29,10 +29,18 @@ kernel (the zoo's kernels run in the prefill, `Model.prefill`):
     PYTHONPATH=src python -m repro_torch.launch.serve --zoo zamba2-1.2b \
         --steps 16
 
-It keeps the JAX CLI's flags. Flags this port cannot honour yet raise
-NotImplementedError naming the ROADMAP item that ports them, and so does
-any model configuration outside the ported slice (mdgnn.check_supported).
-It runs on CUDA unless `--device cpu` is given."""
+`--event-store DIR` serves the tail of an on-disk event store (its
+node space and item range) in place of `--dataset`. Telemetry:
+`--metrics-out FILE` writes the JSONL run-log (a manifest, one "serve"
+record with the counters and the whole ingest and query latency
+histograms, host spans, the kernel-dispatch table), and `--trace-dir DIR`
+captures a `torch.profiler` trace of the first `--trace-steps` ingest
+calls.
+
+It keeps the JAX CLI's flags. A model configuration outside the ported
+slices raises NotImplementedError naming the ROADMAP item that ports it
+(mdgnn.check_supported). It runs on CUDA unless `--device cpu` is
+given."""
 from __future__ import annotations
 
 import argparse
@@ -44,33 +52,31 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import datasets
 from repro_torch.graph.datasets import SPECS
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.train import kernels_line
 from repro_torch.models.mdgnn import MDGNNConfig, init_params, init_state
+from repro_torch.obs import sink
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import MicroBatcher, ServeEngine, replay
-
-# flag -> the ROADMAP item that ports it
-_NOT_YET = {
-    "event_store": "Queue 1 item 17 (event store)",
-    "trace_dir": "Queue 1 item 14 (obs/trace.py)",
-    "metrics_out": "Queue 1 item 14 (obs/sink.py)",
-}
 
 
 def serve_mdgnn(args):
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet; ROADMAP "
-                f"{item} ports it")
     device = resolve_device(args.device)
-    spec = SPECS[args.dataset]
-    stream = datasets.get_dataset(args.dataset, args.seed)
-    dst_range = (spec.n_users, spec.n_users + spec.n_items)
+    if args.event_store:
+        from repro_torch.graph.store import EventStore
+        est = EventStore.open(args.event_store)
+        stream = est.stream()
+        dst_range = est.dst_range()
+    else:
+        spec = SPECS[args.dataset]
+        stream = datasets.get_dataset(args.dataset, args.seed)
+        dst_range = (spec.n_users, spec.n_users + spec.n_items)
     cfg = MDGNNConfig(variant=args.model, n_nodes=stream.num_nodes,
                       d_edge=stream.feat_dim, d_mem=args.d_mem,
                       d_msg=args.d_mem, d_embed=args.d_mem,
                       n_layers=args.n_layers, use_pres=args.pres,
                       use_kernels=args.use_kernels,
-                      kernels_mode=args.kernels_mode)
+                      kernels_mode=args.kernels_mode,
+                      event_store=args.event_store)
     _, serve_s = stream.train_serve_split(args.serve_frac)
     batcher = MicroBatcher(d_edge=stream.feat_dim)
     if args.checkpoint:
@@ -85,18 +91,47 @@ def serve_mdgnn(args):
                              batcher=batcher, item_range=dst_range,
                              device=device)
         origin = "untrained params (pass --checkpoint for a trained model)"
+    runlog = None
+    if args.metrics_out:
+        obs_trace.enable()
+        runlog = sink.RunLog(args.metrics_out, role="serve", cfg=cfg)
+    tracer = None
+    if args.trace_dir:
+        tracer = obs_trace.StepTraceCapture(args.trace_dir,
+                                            n_steps=args.trace_steps)
+        # each ingest call is one traced "step" of the replay window
+        engine.ingest = tracer.wrap(engine.ingest)
     kops.reset_launch_counts()
     tick = args.batch_size / args.rate
     report = replay(engine, serve_s, dst_range, rate=args.rate, tick=tick,
                     query_batch=args.query_batch, seed=args.seed,
                     late_frac=args.late_frac, max_late=args.max_late,
                     max_events=args.max_events)
+    if tracer is not None:
+        tracer.stop()
+    if runlog is not None:
+        runlog.write(
+            "serve", n_events=report.n_events, n_queries=report.n_queries,
+            n_ticks=report.n_ticks, seconds=report.seconds,
+            events_per_sec=report.events_per_sec,
+            queries_per_sec=report.queries_per_sec,
+            ingest_p50_ms=report.ingest_p50_ms,
+            ingest_p99_ms=report.ingest_p99_ms,
+            query_p50_ms=report.query_p50_ms,
+            query_p99_ms=report.query_p99_ms,
+            online_ap=report.online_ap, sim_seconds=report.sim_seconds,
+            ingest_hist=report.ingest_hist, query_hist=report.query_hist,
+            # keys prepared during the replay, "kind size[ k]": any entry
+            # means a live request paid a capture
+            post_warmup_traces={" ".join(map(str, k)): v for k, v in
+                                report.post_warmup_traces.items()})
+    source = (f"store {args.event_store}" if args.event_store
+              else args.dataset)
     print(f"[serve] {args.model}{'-PRES' if args.pres else ''} on "
-          f"{args.dataset} ({origin})")
-    default = kops.resolve_mode("auto", device)
+          f"{source} ({origin})")
     launches = " ".join(f"{k}={v}" for k, v in kops.launch_counts().items())
-    print(f"  kernels: backend={device.type} mode={cfg.kernels_mode} "
-          f"default={default} launches: {launches}")
+    print(f"  kernels: {kernels_line(device, cfg.kernels_mode)} "
+          f"launches: {launches}")
     print(f"  stream: {report.n_events} events over "
           f"{report.sim_seconds:.1f}s simulated arrivals "
           f"(rate={args.rate:.0f} ev/s, {report.n_ticks} ticks)")
@@ -113,6 +148,11 @@ def serve_mdgnn(args):
         scores, items = engine.recommend_topk(srcs, ts, args.topk)
         print(f"  topk  : k={args.topk} for {len(srcs)} sources, e.g. "
               f"src {int(srcs[0])} -> items {items[0].tolist()}")
+    if runlog is not None:
+        # after the top-k, so its dispatches are in the table
+        runlog.close()
+        obs_trace.disable()
+        print(f"[obs] run-log written to {args.metrics_out}")
     return report
 
 
@@ -164,7 +204,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="wiki-small", choices=list(SPECS))
     ap.add_argument("--event-store", default=None,
-                    help="not ported yet (raises)")
+                    help="serve from an on-disk event store directory "
+                         "instead of --dataset; the replay tail stays "
+                         "memory-mapped")
     ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
                     help="the embedding: TGN's attention, JODIE's time "
                          "projection or APAN's mailbox attention")
@@ -201,9 +243,13 @@ def main(argv=None):
                     help="restore the engine from this training checkpoint "
                          "(the model flags must match)")
     ap.add_argument("--metrics-out", default=None,
-                    help="not ported yet (raises)")
+                    help="write a JSONL run-log: manifest, a serve record "
+                         "with counters and the ingest/query latency "
+                         "histograms, host spans and the kernel-dispatch "
+                         "table (tools/inspect_run.py)")
     ap.add_argument("--trace-dir", default=None,
-                    help="not ported yet (raises)")
+                    help="capture a torch.profiler trace of the first "
+                         "--trace-steps ingest calls into this directory")
     ap.add_argument("--trace-steps", type=int, default=8,
                     help="tick window length for --trace-dir")
     ap.add_argument("--seed", type=int, default=0)

@@ -2,15 +2,19 @@
 `repro/launch/train.py`, the paper's experiment loop): Alg. 2 with
 `--pres`, Alg. 1 without; `--model jodie` for JODIE's time projection,
 `--model apan` for APAN's mailbox embedding, `--no-dedup-embed` for TGN's
-dense embedding expansion, and `--pipeline-depth N` (N >= 1) for the
-staleness-aware pipelined schedule, whose batches are carved on a prefetch
-thread. `--use-kernels` runs the CUDA kernels; without it the step takes
-the reference's plain route, which launches none, as the JAX CLI runs
-without Pallas kernels. `--csv PATH` trains on a file of the public JODIE
-format (`events.load_jodie_csv`) instead of `--dataset`; `--checkpoint
-PATH` saves the {"params", "state"} bundle after the last epoch, in the
-JAX package's file format (`checkpoint/io.py`), for the serve CLI's
-`--checkpoint` (or the JAX package's) to restore.
+dense embedding expansion, `--pipeline-depth N` (N >= 1) for the
+staleness-aware pipelined schedule and `--scan-chunk T` (T > 1) for
+macro-batch training (train/scan.py: T lag-one steps a macro step, one
+CUDA graph a macro where the step has no host sync). `--use-kernels`
+runs the CUDA kernels; without it the step takes the reference's plain
+route, which launches none, as the JAX CLI runs without Pallas kernels.
+`--csv PATH` trains on a file of the public JODIE format
+(`events.load_jodie_csv`) and `--event-store DIR` from an on-disk event
+store (graph/store.py, windowed memory maps carved on a prefetch thread,
+the batches bit-identical to the in-RAM carve) instead of `--dataset`;
+`--checkpoint PATH` saves the {"params", "state"} bundle after the last
+epoch, in the JAX package's file format (`checkpoint/io.py`), for the
+serve CLI's `--checkpoint` (or the JAX package's) to restore.
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset wiki-small \
         --model tgn --pres --use-kernels --checkpoint /tmp/wiki.ckpt
@@ -18,8 +22,14 @@ JAX package's file format (`checkpoint/io.py`), for the serve CLI's
 Each epoch trains over the chronological train split, then evaluates on
 the validation split from the trained state, and prints loss, train AP,
 val AP, val AUC and seconds; `--json-out` writes the config and history.
+Telemetry: `--metrics-out FILE` writes the JSONL run-log (obs/sink.py: a
+manifest, an epoch record with the per-step obs series fetched once an
+epoch, GMM tracker health, host spans and the kernel-dispatch table),
+which the JAX package's `tools/inspect_run.py` renders; `--trace-dir DIR`
+captures a `torch.profiler` trace of the first `--trace-steps` step (or
+macro-step) calls.
 
-It keeps the JAX CLI's flags that this path needs. The others raise
+It keeps the JAX CLI's flags. `--n-shards` and `--shard-budget` raise
 NotImplementedError naming the ROADMAP item that ports them, and so does
 any model configuration outside the ported slices
 (mdgnn.check_supported). It runs on CUDA unless `--device cpu` is given.
@@ -39,23 +49,32 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import datasets
 from repro_torch.graph.datasets import SPECS
 from repro_torch.graph.events import load_jodie_csv
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as kops
 from repro_torch.models.mdgnn import (MDGNNConfig, check_supported,
                                       init_params, init_state)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import sink
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
-from repro_torch.train import loop, pipeline
+from repro_torch.train import loop, pipeline, scan
 
 # flag -> the ROADMAP item that ports it
 _NOT_YET = {
-    "event_store": "Queue 1 item 17 (event store)",
-    "scan_chunk": "Queue 1 item 15 (scan macro-batches)",
     "n_shards": "Queue 1 item 18 (memory parallelism)",
     "shard_budget": "Queue 1 item 18 (memory parallelism)",
-    "metrics_out": "Queue 1 item 14 (obs/sink.py)",
-    "trace_dir": "Queue 1 item 14 (obs/trace.py)",
 }
 # flags whose default means "off"
-_OFF = {"scan_chunk": 1, "n_shards": 1}
+_OFF = {"n_shards": 1}
+
+
+def kernels_line(device, mode: str) -> str:
+    """JAX's policy line: the device's backend, the configured mode, the
+    resolved default (the env var's where set) and the autotune entries
+    the device's backend reads."""
+    return (f"backend={device.type} mode={mode} "
+            f"default={kops.resolve_mode('auto', device)} "
+            f"autotune_entries={autotune.n_entries(device.type)}")
 
 
 def main(argv=None):
@@ -64,7 +83,10 @@ def main(argv=None):
     ap.add_argument("--csv", default=None,
                     help="path to a JODIE-format csv (in place of --dataset)")
     ap.add_argument("--event-store", default=None,
-                    help="not ported yet (raises)")
+                    help="train from an on-disk event store directory "
+                         "(python -m repro_torch.launch.convert_events): "
+                         "windowed memory maps, batches bit-identical to "
+                         "the in-RAM carve")
     ap.add_argument("--model", default="tgn", choices=["tgn", "jodie", "apan"],
                     help="the embedding: TGN's attention, JODIE's time "
                          "projection or APAN's mailbox attention")
@@ -106,7 +128,10 @@ def main(argv=None):
                          "batch-writes stale, the in-flight rows filled by "
                          "PRES Eq. 7 (0 = the lag-one loop)")
     ap.add_argument("--scan-chunk", type=int, default=1,
-                    help="not ported yet (raises unless 1)")
+                    help="macro-batch training: T lag-one steps a macro "
+                         "step, negatives drawn in the step, one CUDA graph "
+                         "a macro where the step has no host sync; 1 = the "
+                         "lag-one loop. Excludes --pipeline-depth >= 1")
     ap.add_argument("--n-shards", type=int, default=1,
                     help="not ported yet (raises unless 1)")
     ap.add_argument("--shard-budget", type=int, default=None,
@@ -116,9 +141,15 @@ def main(argv=None):
                          "last epoch")
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--metrics-out", default=None,
-                    help="not ported yet (raises)")
+                    help="write a JSONL run-log: manifest, per-epoch "
+                         "records with the device-accumulated obs series, "
+                         "GMM tracker health, host spans and the "
+                         "kernel-dispatch table (tools/inspect_run.py)")
     ap.add_argument("--trace-dir", default=None,
-                    help="not ported yet (raises)")
+                    help="capture a torch.profiler trace of the first "
+                         "--trace-steps step calls into this directory")
+    ap.add_argument("--trace-steps", type=int, default=8,
+                    help="step-call window of --trace-dir")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
     args = ap.parse_args(argv)
@@ -129,7 +160,13 @@ def main(argv=None):
                 f"{item} ports it")
 
     device = resolve_device(args.device)
-    if args.csv:
+    streamed = args.event_store is not None
+    if streamed:
+        from repro_torch.graph.store import EventStore
+        est = EventStore.open(args.event_store)
+        stream = est.stream()
+        dst_range = est.dst_range()
+    elif args.csv:
         stream = load_jodie_csv(args.csv)
         dst_range = (0, stream.num_nodes)
     else:
@@ -144,50 +181,99 @@ def main(argv=None):
         use_pres=args.pres, beta=args.beta, delta_mode=args.delta_mode,
         pres_scale=args.pres_scale, dedup_embed=not args.no_dedup_embed,
         use_kernels=args.use_kernels, kernels_mode=args.kernels_mode,
-        pipeline_depth=args.pipeline_depth)
+        pipeline_depth=args.pipeline_depth, scan_chunk=args.scan_chunk,
+        event_store=args.event_store,
+        obs_metrics=args.metrics_out is not None)
     check_supported(cfg)
+    scan.check_schedule(cfg)
     depth = cfg.pipeline_depth
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          device)
     state = init_state(cfg, device)
     opt = adamw(args.lr)
     opt_state = opt.init(params)
-    train_step = pipeline.make_train_step(cfg, opt)
+    runlog = None
+    if args.metrics_out:
+        obs_trace.enable()
+        runlog = sink.RunLog(args.metrics_out, role="train", cfg=cfg,
+                             argv=argv)
+    tracer = (obs_trace.StepTraceCapture(args.trace_dir,
+                                         n_steps=args.trace_steps)
+              if args.trace_dir else None)
+    hook = tracer.wrap if tracer else None
+    engine = (scan.ScanEngine(cfg, opt, step_hook=hook)
+              if cfg.scan_chunk > 1 else None)
+    train_step = None if engine else pipeline.make_train_step(cfg, opt)
+    if hook is not None and train_step is not None:
+        train_step = hook(train_step)
     eval_step = loop.make_eval_step(cfg)
     gen = torch.Generator(device).manual_seed(args.seed)
-    # depth 0 trains from the materialised list; depth >= 1 re-carves the
-    # batches each epoch on a prefetch thread, overlapping the carve and
-    # the host-to-device copies with the steps
-    if depth:
+    # the lag-one loop and scan train from the materialised list; the
+    # pipelined schedule and a store re-carve the batches each epoch on a
+    # prefetch thread (a store's windows are mapped there), overlapping the
+    # carve and the host-to-device copies with the steps
+    if streamed or depth:
         make_batches = lambda: train_s.prefetch_batches(
             args.batch_size, device, depth=max(2, depth))
     else:
         batches = train_s.temporal_batches(args.batch_size, device)
         make_batches = lambda: batches
-    val_batches = val_s.temporal_batches(args.batch_size, device)
+    if streamed:
+        make_val = lambda: val_s.iter_temporal_batches(args.batch_size,
+                                                       device)
+    else:
+        val_batches = val_s.temporal_batches(args.batch_size, device)
+        make_val = lambda: val_batches
     if cfg.use_kernels:
-        print(f"[kernels] backend={device.type} mode={cfg.kernels_mode} "
-              f"default={kops.resolve_mode('auto', device)}")
+        print(f"[kernels] {kernels_line(device, cfg.kernels_mode)}")
+    source = (f"store {args.event_store}" if streamed
+              else args.csv or args.dataset)
     print(f"[train] {args.model}{'-PRES' if args.pres else ''} on "
-          f"{args.csv or args.dataset}: {len(train_s)} events, "
+          f"{source}: {len(train_s)} events, "
           f"K={train_s.num_batches(args.batch_size)} batches of "
           f"b={args.batch_size}"
-          + (f", pipeline_depth={depth}" if depth else ""))
+          + (f", pipeline_depth={depth}" if depth else "")
+          + (f", scan_chunk={cfg.scan_chunk}" if cfg.scan_chunk > 1 else ""))
     history = []
     for epoch in range(args.epochs):
-        params, opt_state, state, res = pipeline.run_epoch(
-            params, opt_state, state, make_batches(), cfg, train_step, gen,
-            dst_range)
-        _, vap, vauc = loop.evaluate(params, state, val_batches, cfg,
+        if engine is not None:
+            params, opt_state, state, res = engine.run_epoch(
+                params, opt_state, state, make_batches(), gen, dst_range)
+        else:
+            params, opt_state, state, res = pipeline.run_epoch(
+                params, opt_state, state, make_batches(), cfg, train_step,
+                gen, dst_range)
+        _, vap, vauc = loop.evaluate(params, state, make_val(), cfg,
                                      eval_step, gen, dst_range)
         history.append({"epoch": epoch, "train_ap": res.ap, "loss": res.loss,
                         "seconds": res.seconds, "val_ap": vap,
                         "val_auc": vauc})
+        if runlog is not None:
+            rec = {"epoch": epoch, "loss": res.loss, "train_ap": res.ap,
+                   "val_ap": vap, "val_auc": vauc, "seconds": res.seconds,
+                   "route_overflow": res.route_overflow}
+            if res.obs is not None:
+                rec.update(steps=res.obs["steps"], series=res.obs["series"])
+                ev = sum(res.obs["series"].get("events", []))
+                if res.seconds > 0:
+                    rec["events_per_sec"] = ev / res.seconds
+            if cfg.use_pres:
+                rec["gmm_health"] = obs_metrics.gmm_health(state["pres"])
+            if engine is not None:
+                rec["scan_captured"] = engine.captured
+            runlog.write("epoch", **rec)
         print(f"  epoch {epoch}: loss={res.loss:.4f} train_ap={res.ap:.4f} "
               f"val_ap={vap:.4f} val_auc={vauc:.4f} ({res.seconds:.1f}s)")
+    if tracer is not None:
+        tracer.stop()
     if args.checkpoint:
         save_checkpoint(args.checkpoint, bridge.mdgnn_bundle(params, state))
         print(f"[ckpt] saved to {args.checkpoint}")
+    if runlog is not None:
+        # the epilogue: host spans, the kernel-dispatch table, the end
+        runlog.close()
+        obs_trace.disable()
+        print(f"[obs] run-log written to {args.metrics_out}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump({"config": dataclasses.asdict(cfg), "history": history},

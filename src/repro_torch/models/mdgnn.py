@@ -63,10 +63,8 @@ class MDGNNConfig:
 # porting others)
 _SUPPORTED = {
     "mem_dtype": (("float32",), "Queue 1 item 18 (mem_dtype='bfloat16')"),
-    "scan_chunk": ((1,), "Queue 1 item 15 (scan macro-batches)"),
-    "event_store": ((None,), "Queue 1 item 17 (event store)"),
     "n_shards": ((1,), "Queue 1 item 18 (memory parallelism)"),
-    "obs_metrics": ((False,), "Queue 1 item 14 (telemetry)"),
+    "shard_budget": ((None,), "Queue 1 item 18 (memory parallelism)"),
 }
 # field -> every value the reference defines
 _CHOICES = {

@@ -85,10 +85,11 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
                 lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                 state["nu"], grads)
             stepf = step.float()
-            bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                             device=stepf.device), stepf)
-            bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                             device=stepf.device), stepf)
+            # fills, not host-scalar copies: a CUDA graph can record them
+            bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+            bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                           device=stepf.device), stepf)
 
             def upd(m, v, p):
                 u = -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps)

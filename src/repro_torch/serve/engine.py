@@ -45,10 +45,10 @@ re-bound (the setter raises); every update is in place. A replay calls
 no kernel wrapper, so the engine adds each graph's launches, counted at
 capture, to the launch counters at every replay (`ops.add_launches`).
 
-Each body runs inside a `torch.profiler.record_function` range
-(serve_ingest, serve_query, serve_topk). The engine runs on CUDA unless
-`device="cpu"` is passed; then every kernel takes its plain PyTorch
-version."""
+Each body runs inside an `obs.trace.stage` range (serve_ingest,
+serve_query, serve_topk: a `torch.profiler.record_function`). The engine
+runs on CUDA unless `device="cpu"` is passed; then every kernel takes its
+plain PyTorch version."""
 from __future__ import annotations
 
 import collections
@@ -66,6 +66,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.train import loop as loop_lib
 
@@ -178,7 +179,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def _ingest_body(self, batch: EventBatch) -> None:
-        with torch.profiler.record_function("serve_ingest"):
+        with obs_trace.stage("serve_ingest"):
             _, info, _, delta = loop_lib.memory_and_pres(
                 self.params, self.cfg, self.state, batch)
             aux = {"delta": delta, "info_nodes": info["nodes"],
@@ -189,7 +190,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def _query_body(self, src, dst, t):
-        with torch.profiler.record_function("serve_query"):
+        with obs_trace.stage("serve_query"):
             b = src.shape[0]
             h = mdgnn.embed_nodes(self.params, self.cfg, self.state,
                                   torch.cat([src, dst]), torch.cat([t, t]))
@@ -197,7 +198,7 @@ class ServeEngine:
 
     @torch.no_grad()
     def _topk_body(self, src, t, k: int):
-        with torch.profiler.record_function("serve_topk"):
+        with obs_trace.stage("serve_topk"):
             lo, hi = self.item_range
             items = torch.arange(lo, hi, dtype=torch.int64, device=src.device)
             # item embeddings are shared by the batch, taken at its latest

@@ -7,7 +7,9 @@ them with corrupted-destination negatives, scores both, then ingests the
 tick's events. Every engine call is timed to a device sync, so p50/p99 are
 end-to-end serving latencies and events/sec is synchronous throughput.
 `post_warmup_traces` lists the keys the engine prepared during the replay
-(on CUDA: captured a graph for), which a warmed-up engine never does."""
+(on CUDA: captured a graph for), which a warmed-up engine never does.
+`ingest_hist` / `query_hist` are the whole latency distributions over the
+fixed log-spaced buckets of `obs.metrics.latency_hist`."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +19,7 @@ import numpy as np
 
 from repro_torch.graph import events as events_lib
 from repro_torch.graph.events import EventStream
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.utils import metrics as metrics_lib
 
@@ -39,6 +42,9 @@ class ReplayReport:
     # {(kind, bucket[, k]): count}: non-empty means a live request paid a
     # capture and the percentiles above include it
     post_warmup_traces: dict = dataclasses.field(default_factory=dict)
+    # latency distributions, {"edges_ms", "counts", "n"}
+    ingest_hist: dict = dataclasses.field(default_factory=dict)
+    query_hist: dict = dataclasses.field(default_factory=dict)
 
 
 def _pctl(xs, q):
@@ -117,4 +123,6 @@ def replay(engine: ServeEngine, stream: EventStream, dst_range, *,
         post_warmup_traces={
             k: c - warm_traces.get(k, 0)
             for k, c in engine.trace_counts.items()
-            if c > warm_traces.get(k, 0)})
+            if c > warm_traces.get(k, 0)},
+        ingest_hist=obs_metrics.latency_hist(ingest_times),
+        query_hist=obs_metrics.latency_hist(query_times))

@@ -20,7 +20,12 @@ memory stage and the state maintenance here.
 
 State updates are IN PLACE on the state dict's tensors where the JAX
 engine donates and aliases its buffers, and the state is detached after
-every step (the JAX step's stop_gradient)."""
+every step (the JAX step's stop_gradient). The step body
+(`make_step_body`) is shared by `make_train_step` and the scan engine
+(train/scan.py); with PRES, the GRU cell and kernels it waits for nothing
+on the host, so the scan engine captures it as a CUDA graph. With
+cfg.obs_metrics the step's metrics carry the obs vector (obs/metrics.py),
+formed on the device and fetched once an epoch."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +43,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.models.modules import MemoryState
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.utils import metrics as metrics_lib
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -206,16 +213,39 @@ def maintain_state(cfg: MDGNNConfig, params, state, aux, batch: EventBatch,
         update_mailbox(params, cfg, state, batch)
 
 
-def make_train_step(cfg: MDGNNConfig, opt):
-    """The lag-one train step (JAX `make_step_body` / `make_train_step`):
-    train_step(params, opt_state, state, prev_batch, pos, neg) ->
-    (params, opt_state, state, metrics).
+def obs_step_stats(params, cfg: MDGNNConfig, info, fused, loss, pen,
+                   pos: EventBatch, staleness=0.0):
+    """The step's obs vector (JAX `loop._obs_step_stats`), on the device,
+    detached. The PRES prediction error comes from values in hand: Eq. 8
+    gives s_meas - s_pred = (s_meas - fused) / (1 - gamma), so its row
+    norms cost one elementwise pass."""
+    with torch.no_grad():
+        written = info["selected"] & info["mask"]
+        d_mean = d_max = d_cnt = 0.0
+        if cfg.use_pres:
+            gamma = torch.sigmoid(params["pres"]["gamma_logit"])
+            inv = 1.0 / torch.clamp(1.0 - gamma, min=1e-6)
+            d_mean, d_max, d_cnt = obs_metrics.pres_delta_stats(
+                fused, info["s_meas"], written)
+            d_mean, d_max = d_mean * inv, d_max * inv
+        return obs_metrics.pack_train_obs(
+            loss=loss, coherence_cos=1.0 - pen,
+            pres_delta_mean=d_mean, pres_delta_max=d_max,
+            pres_delta_events=d_cnt, staleness=staleness,
+            events=torch.sum(pos.mask.to(torch.float32)))
+
+
+def make_step_body(cfg: MDGNNConfig, opt):
+    """The lag-one train-step body, shared by `make_train_step` and the
+    scan engine (train/scan.py runs it T times a macro-batch, or captures
+    those T calls as one CUDA graph): body(params, opt_state, state,
+    prev_batch, pos, neg) -> (params, opt_state, state, metrics).
 
     The loss is differentiated with torch.autograd with respect to every
     parameter (zeros for the ones it does not reach, as jax.grad gives).
-    Parameters and the optimizer state are updated in place, and so is the
-    state: the caller keeps using the returned objects, as the JAX caller
-    of its donated step does."""
+    Parameters and the state are updated in place; the optimizer returns
+    its new state. The caller keeps using the returned objects, as the JAX
+    caller of its donated step does."""
     use_smooth = (cfg.use_smoothing if cfg.use_smoothing is not None
                   else cfg.use_pres)
 
@@ -223,29 +253,46 @@ def make_train_step(cfg: MDGNNConfig, opt):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        mem2, info, fused, delta = memory_and_pres(params, cfg, state,
-                                                   prev_batch)
+        with obs_trace.stage("memory_update"):
+            mem2, info, fused, delta = memory_and_pres(params, cfg, state,
+                                                       prev_batch)
         state2 = dict(state, memory=mem2)
-        logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
-        loss = link_bce(logit_p, logit_n, pos.mask, neg.mask)
-        pen = coherence.coherence_penalty(
-            info["s_prev"], fused, mask=info["selected"] & info["mask"])
-        if use_smooth and cfg.beta:
-            loss = loss + cfg.beta * pen
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        updates, opt_state = opt.update(tree_unflatten(params, grads),
-                                        opt_state, params)
-        apply_updates(params, updates)
+        with obs_trace.stage("embed"):
+            logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
+        with obs_trace.stage("loss"):
+            loss = link_bce(logit_p, logit_n, pos.mask, neg.mask)
+            pen = coherence.coherence_penalty(
+                info["s_prev"], fused, mask=info["selected"] & info["mask"])
+            if use_smooth and cfg.beta:
+                loss = loss + cfg.beta * pen
+        # the obs vector reads gamma before the update, as JAX's does
+        obs = (obs_step_stats(params, cfg, info, fused.detach(),
+                              loss.detach(), pen.detach(), pos)
+               if cfg.obs_metrics else None)
+        with obs_trace.stage("apply"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            updates, opt_state = opt.update(tree_unflatten(params, grads),
+                                            opt_state, params)
+            apply_updates(params, updates)
         aux = {"delta": delta.detach(), "info_nodes": info["nodes"],
                "info_selected": info["selected"], "info_mask": info["mask"]}
         maintain_state(cfg, params, state2, aux, prev_batch)
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
                    "logit_p": logit_p.detach(), "logit_n": logit_n.detach()}
+        if obs is not None:
+            metrics["obs"] = obs
         return params, opt_state, state2, metrics
 
     return train_step
+
+
+def make_train_step(cfg: MDGNNConfig, opt):
+    """The lag-one train step (JAX `make_train_step`): train_step(params,
+    opt_state, state, prev_batch, pos, neg) -> (params, opt_state, state,
+    metrics), the body of `make_step_body`."""
+    return make_step_body(cfg, opt)
 
 
 def make_eval_step(cfg: MDGNNConfig):
@@ -274,6 +321,11 @@ class EpochResult:
     seconds: float
     # with run_epoch(collect_logits=True): the AP of each step's logits
     aps: list = dataclasses.field(default_factory=list)
+    # sharded runs' budget-masked rows in JAX; 0 in the port (no sharding)
+    route_overflow: int = 0
+    # cfg.obs_metrics runs: {"series": {field: [floats]}, "steps": int},
+    # fetched once an epoch (obs/metrics.py::EpochObs)
+    obs: dict | None = None
 
 
 def _negatives(negatives, generator, batch, dst_range):
@@ -294,11 +346,18 @@ def _logits_ap(pos_all, neg_all):
     return pos, neg, metrics_lib.average_precision(pos, neg)
 
 
-def epoch_result(losses, pos_all, neg_all, seconds_from, collect_logits):
+def epoch_result(losses, pos_all, neg_all, seconds_from, collect_logits,
+                 obs=None):
     """The EpochResult of an epoch's device losses and logits, fetched in
     one copy each; with `collect_logits` the AP of every step too (from
-    the same copy, split by step)."""
-    loss = float(np.mean(torch.stack(losses).double().cpu().numpy()))
+    the same copy, split by step). `losses` holds () or (T,) tensors,
+    `pos_all` / `neg_all` (b,) or (T, b) ones; `obs` is the epoch's
+    EpochObs, flushed here."""
+    route_overflow, obs_out = obs.finish() if obs is not None else (0, None)
+    loss = float(np.mean(torch.cat([x.reshape(-1) for x in losses])
+                         .double().cpu().numpy()))
+    pos_all = [r for x in pos_all for r in (x if x.dim() == 2 else [x])]
+    neg_all = [r for x in neg_all for r in (x if x.dim() == 2 else [x])]
     pos, neg, ap = _logits_ap(pos_all, neg_all)
     aps = []
     if collect_logits:
@@ -306,7 +365,8 @@ def epoch_result(losses, pos_all, neg_all, seconds_from, collect_logits):
             [p.shape[0] for p in parts])[:-1])
         aps = [metrics_lib.average_precision(p, n) for p, n in
                zip(cut(pos, pos_all), cut(neg, neg_all))]
-    return EpochResult(ap, loss, time.perf_counter() - seconds_from, aps)
+    return EpochResult(ap, loss, time.perf_counter() - seconds_from, aps,
+                       route_overflow=route_overflow, obs=obs_out)
 
 
 def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
@@ -316,25 +376,33 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
 
     Negatives are drawn from `generator` unless `negatives` gives one
     batch per step (the parity tests inject the JAX package's draws).
-    Losses and logits stay on the device until the epoch ends, so the loop
-    itself does not wait for the device; `collect_logits` adds each
-    step's AP (`EpochResult.aps`), computed from the same end-of-epoch
-    copy."""
+    `batches` may be a list or an iterator (a prefetch iterator is closed
+    when the epoch ends or fails). Losses, logits and obs vectors stay on
+    the device until the epoch ends, so the loop itself does not wait for
+    the device; `collect_logits` adds each step's AP (`EpochResult.aps`),
+    computed from the same end-of-epoch copy."""
     t0 = time.perf_counter()
     losses, pos_all, neg_all = [], [], []
+    obs = obs_metrics.EpochObs()
     negs = None if negatives is None else iter(negatives)
     it = iter(batches)
-    prev_batch = next(it)
-    for batch in it:
-        neg = _negatives(negs, generator, batch, dst_range)
-        params, opt_state, state, m = train_step(params, opt_state, state,
-                                                 prev_batch, batch, neg)
-        losses.append(m["loss"])
-        pos_all.append(m["logit_p"])
-        neg_all.append(m["logit_n"])
-        prev_batch = batch
+    try:
+        prev_batch = next(it)
+        for batch in it:
+            neg = _negatives(negs, generator, batch, dst_range)
+            params, opt_state, state, m = train_step(
+                params, opt_state, state, prev_batch, batch, neg)
+            losses.append(m["loss"])
+            pos_all.append(m["logit_p"])
+            neg_all.append(m["logit_n"])
+            obs.step(m)
+            prev_batch = batch
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
     return params, opt_state, state, epoch_result(
-        losses, pos_all, neg_all, t0, collect_logits)
+        losses, pos_all, neg_all, t0, collect_logits, obs)
 
 
 def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
@@ -348,13 +416,18 @@ def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
     pos_all, neg_all = [], []
     negs = None if negatives is None else iter(negatives)
     it = iter(batches)
-    prev_batch = next(it)
-    for batch in it:
-        neg = _negatives(negs, generator, batch, dst_range)
-        state, lp, ln = eval_step(params, state, prev_batch, batch, neg)
-        pos_all.append(lp)
-        neg_all.append(ln)
-        prev_batch = batch
+    try:
+        prev_batch = next(it)
+        for batch in it:
+            neg = _negatives(negs, generator, batch, dst_range)
+            state, lp, ln = eval_step(params, state, prev_batch, batch, neg)
+            pos_all.append(lp)
+            neg_all.append(ln)
+            prev_batch = batch
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
     if not pos_all:
         return state, float("nan"), float("nan")
     pos, neg, ap = _logits_ap(pos_all, neg_all)

@@ -14,7 +14,9 @@ memory and message parameters, so the step refuses to run without it.
 `pipeline_depth=0` is the lag-one schedule: `make_train_step` and
 `run_epoch` delegate to `train/loop.py` unchanged.
 
-Like the lag-one step, the pipelined step updates the state, the snapshot,
+With cfg.obs_metrics the step's obs vector carries the snapshot's
+staleness (obs/metrics.py). Like the lag-one step, the pipelined step
+updates the state, the snapshot,
 the parameters and the optimizer moments IN PLACE. The snapshot holds
 copies of the live table, never aliases: the memory stage writes the live
 table in place, so an alias would make the snapshot live."""
@@ -30,6 +32,8 @@ from repro_torch.graph.events import EventBatch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.models.modules import MemoryState
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.train import loop as loop_lib
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -118,8 +122,9 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         for p in leaves:
             p.requires_grad_(True)
         # MEMORY stage, on the live table
-        mem2, info, fused, delta = loop_lib.memory_and_pres(
-            params, cfg, state, prev_batch)
+        with obs_trace.stage("memory_update"):
+            mem2, info, fused, delta = loop_lib.memory_and_pres(
+                params, cfg, state, prev_batch)
         state2 = dict(state, memory=mem2)
         # staleness accounting: this batch's occurrences are in flight
         mask = info["mask"]
@@ -127,27 +132,35 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
             info["nodes"], n))
         pstate.pending.index_add_(0, keys, mask.to(torch.float32))
         # EMBEDDING stage, on the filled snapshot
-        read_tab = stale_read_table(cfg, state["pres"], pstate,
-                                    mem2.last_update)
-        embed_state = dict(state2, memory=MemoryState(
-            mem=read_tab, last_update=pstate.read_last_update))
-        logit_p, logit_n = loop_lib.endpoint_logits(params, cfg, embed_state,
-                                                    pos, neg)
-        loss = loop_lib.link_bce(logit_p, logit_n, pos.mask, neg.mask)
-        pen = coherence.coherence_penalty(
-            info["s_prev"], fused, mask=info["selected"] & mask)
-        loss = loss + cfg.beta * pen
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        updates, opt_state = opt.update(tree_unflatten(params, grads),
-                                        opt_state, params)
-        apply_updates(params, updates)
+        with obs_trace.stage("embed"):
+            read_tab = stale_read_table(cfg, state["pres"], pstate,
+                                        mem2.last_update)
+            embed_state = dict(state2, memory=MemoryState(
+                mem=read_tab, last_update=pstate.read_last_update))
+            logit_p, logit_n = loop_lib.endpoint_logits(
+                params, cfg, embed_state, pos, neg)
+        with obs_trace.stage("loss"):
+            loss = loop_lib.link_bce(logit_p, logit_n, pos.mask, neg.mask)
+            pen = coherence.coherence_penalty(
+                info["s_prev"], fused, mask=info["selected"] & mask)
+            loss = loss + cfg.beta * pen
+        # the snapshot's staleness this step: batch-writes it misses
+        staleness = pstate.tick + 1
+        obs = (loop_lib.obs_step_stats(params, cfg, info, fused.detach(),
+                                       loss.detach(), pen.detach(), pos,
+                                       staleness=staleness)
+               if cfg.obs_metrics else None)
+        with obs_trace.stage("apply"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            updates, opt_state = opt.update(tree_unflatten(params, grads),
+                                            opt_state, params)
+            apply_updates(params, updates)
         aux = {"delta": delta.detach(), "info_nodes": info["nodes"],
                "info_selected": info["selected"], "info_mask": mask}
         loop_lib.maintain_state(cfg, params, state2, aux, prev_batch)
         # snapshot refresh, in place on the refresh step only
-        staleness = pstate.tick + 1
         if staleness >= cfg.pipeline_depth:
             pstate.read_mem.copy_(state2["memory"].mem)
             pstate.read_last_update.copy_(state2["memory"].last_update)
@@ -158,6 +171,8 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
                    "logit_p": logit_p.detach(), "logit_n": logit_n.detach(),
                    "staleness": staleness}
+        if obs is not None:
+            metrics["obs"] = obs
         return params, opt_state, state2, pstate, metrics
 
     return train_step
@@ -188,6 +203,7 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
     t0 = time.perf_counter()
     pstate = PipelineState.init(state["memory"])
     losses, pos_all, neg_all = [], [], []
+    obs = obs_metrics.EpochObs()
     negs = None if negatives is None else iter(negatives)
     it = iter(batches)
     try:
@@ -199,10 +215,11 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
             losses.append(m["loss"])
             pos_all.append(m["logit_p"])
             neg_all.append(m["logit_n"])
+            obs.step(m)
             prev_batch = batch
     finally:
         close = getattr(it, "close", None)
         if close is not None:
             close()
     return params, opt_state, state, loop_lib.epoch_result(
-        losses, pos_all, neg_all, t0, collect_logits)
+        losses, pos_all, neg_all, t0, collect_logits, obs)

@@ -299,8 +299,11 @@ def test_tgn_pres_configs_match_jax():
         assert dataclasses.asdict(getattr(ttgn_pres, name)) == \
             dataclasses.asdict(getattr(jtgn_pres, name)), name
     tmdgnn.check_supported(ttgn_pres.CONFIG)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmdgnn.check_supported(ttgn_pres.PRODUCTION)
+    # PRODUCTION names an event store, ported by the fourteenth slice
+    tmdgnn.check_supported(ttgn_pres.PRODUCTION)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tmdgnn.check_supported(dataclasses.replace(ttgn_pres.PRODUCTION,
+                                                   n_shards=4))
 
 
 def test_cli_checkpoint_then_serve_on_cpu(tmp_path, capsys, monkeypatch):

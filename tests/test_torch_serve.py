@@ -25,6 +25,7 @@ from repro.serve import replay as jreplay
 
 from repro_torch import bridge
 from repro_torch.graph import datasets as tdatasets
+from repro_torch.graph import events as tevents
 from repro_torch.models import mdgnn as tmdgnn
 from repro_torch.serve import MicroBatcher, ServeEngine, replay
 
@@ -193,13 +194,15 @@ def test_stream_chunk_byte_identical(lo, hi):
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
     for change in (dict(mem_dtype="bfloat16"), dict(n_shards=2),
-                   dict(scan_chunk=2), dict(event_store="x"),
-                   dict(obs_metrics=True)):
+                   dict(shard_budget=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmdgnn.check_supported(dataclasses.replace(cfg, **change))
-    # ported by the tenth slice: accepted
+    # ported by the tenth slice and (scan, the store, telemetry) the
+    # fourteenth: accepted
     for change in (dict(variant="jodie"), dict(pres_buckets=8),
-                   dict(anchor_fraction=0.5), dict(use_kernels=False)):
+                   dict(anchor_fraction=0.5), dict(use_kernels=False),
+                   dict(scan_chunk=2), dict(event_store="x"),
+                   dict(obs_metrics=True)):
         tmdgnn.check_supported(dataclasses.replace(cfg, **change))
     state = tmdgnn.init_state(cfg, "cpu")
     params = tmdgnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -220,10 +223,30 @@ def test_launch_serve_cli_on_cpu(model, capsys):
     assert rep.n_events == 400 and 0.0 <= rep.online_ap <= 1.0
 
 
-def test_launch_serve_cli_refuses_unported_flags():
+def test_launch_serve_cli_refuses_unported_flags(tmp_path, tiny_stream,
+                                                 capsys):
+    """The flags of the fourteenth slice (--event-store, --trace-dir,
+    --metrics-out) now serve; the configuration left to port (memory
+    parallelism) is refused by the engine with the ROADMAP item."""
+    from repro_torch.graph import store as tstore
     from repro_torch.launch import serve as tserve
-    for flags in (["--event-store", "x"], ["--trace-dir", "x"],
-                  ["--metrics-out", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(["--pres", "--use-kernels", "--device", "cpu",
-                         *flags])
+    tstore.write_stream(tevents.EventStream(
+        tiny_stream.src, tiny_stream.dst, tiny_stream.t, tiny_stream.feat,
+        tiny_stream.num_nodes), tmp_path / "store",
+        meta={"n_users": 50, "n_items": 30})
+    rep = tserve.main(["--pres", "--use-kernels", "--device", "cpu",
+                       "--d-mem", "8", "--serve-frac", "0.5",
+                       "--event-store", str(tmp_path / "store"),
+                       "--trace-dir", str(tmp_path / "tr"),
+                       "--trace-steps", "2",
+                       "--metrics-out", str(tmp_path / "run.jsonl")])
+    out = capsys.readouterr().out
+    assert f"store {tmp_path / 'store'}" in out and rep.n_events == 300
+    assert (tmp_path / "tr" / "trace.json").is_file()
+    assert (tmp_path / "run.jsonl").read_text().count('"kind": "serve"') == 1
+    cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(dataclasses.replace(cfg, n_shards=2),
+                    tmdgnn.init_params(cfg, torch.Generator().manual_seed(0),
+                                       "cpu"),
+                    tmdgnn.init_state(cfg, "cpu"), device="cpu")

@@ -279,9 +279,16 @@ def test_launch_train_cli_on_cpu(tmp_path, capsys):
     assert "epoch 0: loss=" in printed and "val_ap=" in printed
     assert len(hist) == 1 and 0.0 <= hist[0]["val_ap"] <= 1.0
     assert out.exists()
+    # macro-batches (ported by the fourteenth slice) train; memory
+    # parallelism is still refused
+    hist = ttrain.main(["--dataset", "mooc-small", "--pres", "--use-kernels",
+                        "--device", "cpu", "--d-mem", "8", "--batch-size",
+                        "2000", "--epochs", "1", "--scan-chunk", "2"])
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    assert "scan_chunk=2" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--use-kernels", "--device", "cpu",
-                     "--scan-chunk", "2"])
+                     "--n-shards", "2"])
     # no --use-kernels: the plain route, as the JAX CLI runs; and JODIE
     small = ["--device", "cpu", "--d-mem", "8", "--batch-size", "2000",
              "--epochs", "1"]
