@@ -119,7 +119,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    whisper-tiny whole (B = 2, 1,500 frames, 448 tokens; no launch).
    train-zoo-qwen3 / -zamba2 / -xlstm: zoo training at full width (remat
    on, ARCH_OPTIMIZER's optimizer): one fp32 step's loss and every
-   gradient leaf and a 3-step free-running loss curve against the plain
+   gradient leaf and a 2-step free-running loss curve against the plain
    route, launches pinned a step (TRAIN_ZOO), then bf16 steps timed;
    train-zoo-reduced: two steps of each of the ten arches reduced.
    cli-zoo: `python -m repro_torch.launch.serve --zoo` for every arch.
@@ -265,13 +265,14 @@ ZOO_CUT = {"zoo-arctic": dict(n_layers=1, param_dtype="bfloat16"),
 # qwen3: 28 attention layers x 2 (S = 4,096 = 2 x attn_chunk: the
 # blockwise branch); zamba2: 36 Mamba2 blocks in its 6 units x 16 chunks x
 # 2, its 2 tail blocks (outside remat) x 16, the shared attention x 6 x 2;
-# xlstm: 21 mLSTM layers x 2 chunks x 2 (S = 512: its sLSTM loop over
-# time is host-bound)
+# xlstm: 21 mLSTM layers x 1 chunk x 2 (S = 256, one 256-row chunk: its
+# sLSTM loop over time is host-bound, so its length is cut to keep the
+# script in its time limit; 512 before PR 25)
 TRAIN_ZOO = {"train-zoo-qwen3": ("qwen3-0.6b", 1, 4096, {"flash_attn": 56}),
              "train-zoo-zamba2": ("zamba2-1.2b", 1, 4096,
                                   {"ssd_chunk": 36 * 16 * 2 + 2 * 16,
                                    "flash_attn": 12}),
-             "train-zoo-xlstm": ("xlstm-350m", 2, 512, {"ssd_chunk": 84})}
+             "train-zoo-xlstm": ("xlstm-350m", 2, 256, {"ssd_chunk": 42})}
 # each reduced arch (attn_chunk=32, the stacked layout, remat on) at B = 2
 # and 64 positions: its kernels' launches a step (2 layers; kimi's first,
 # dense, layer runs outside remat; zamba2's one unit of 2 Mamba2 blocks
@@ -296,7 +297,9 @@ TRAIN_ZOO_TOL = {"loss": 1e-5, "grad": 1e-3, "curve": 1e-3}
 # is measured in each of their runs and joins each leaf's and each step's
 # limit. The other train phases are held to TRAIN_ZOO_TOL alone
 TRAIN_ZOO_NOISE_FLOOR = ("train-zoo-zamba2", "train-zoo-xlstm")
-TRAIN_ZOO_STEPS = 3
+# the free-running curve's steps (3 before PR 25; cut for the script's
+# time limit: each step of the noise-floor phases runs four times)
+TRAIN_ZOO_STEPS = 2
 # the phases whose kernel rows go in the result line (the others' rows go
 # to --out and the log)
 ZOO_LINE = ("zoo-qwen3", "zoo-xlstm")
@@ -489,8 +492,10 @@ def work(name, args, kw=None):
         m, din = x.shape
         valid = int((g < n).sum())
         written = int((w_idx < n).sum())
-        nbytes = (m * (din + d + 4) + (w.numel() + u.numel()
-                  + b.numel()) + valid * d + 3 * m * d + written * (d + 1)) * f
+        # the table's rows at its own width (2 bytes a bf16 value)
+        nbytes = (m * (din + d + 4) + (w.numel() + u.numel() + b.numel())
+                  + 3 * m * d + written) * f + (
+                      valid + written) * d * table.element_size()
         return nbytes, {
             PEAK_TF32: 3 * 2 * 3 * d * (m * din + valid * d),
             PEAK_FP32: m * 30 * d}
@@ -690,7 +695,7 @@ def check_kernel(name, args, kw, label):
     from repro_torch.kernels.ref import bf16_excess
     got, want = run_pair(name, args, kw)
     torch.cuda.synchronize()
-    if got[0].dtype == torch.bfloat16:
+    if got[0].dtype == torch.bfloat16 and name != "memory_update_table":
         want32 = ops.dispatch(name, *[a.float() for a in args],
                               mode="oracle", **kw)
         require(bool(torch.isfinite(got[0].float()).all()),
@@ -701,6 +706,17 @@ def check_kernel(name, args, kw, label):
         return err
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.bfloat16:
+            # a bf16 table: each row within one bf16 ulp of the plain
+            # version's (both round fp32 rows that agree within TOL)
+            require(bool(torch.isfinite(g.float()).all()),
+                    f"{name} [{label}]: output {i} is not finite")
+            excess, err = bf16_excess(g, w.float(), TOL[name])
+            require(excess <= 0, f"{name} [{label}]: output {i}: a bf16 row "
+                    f"beyond one ulp of the plain version's (max|diff| "
+                    f"{err:.3g})")
+            worst = max(worst, err)
+            continue
         g, w = g.float(), w.float()
         require(bool(torch.isfinite(g).all()),
                 f"{name} [{label}]: output {i} is not finite")
@@ -830,6 +846,13 @@ def edge_cases(dev):
                       dict(clip=1.0, delta_mode="transition"),
                       f"M={m} D={d} Din={din} masked={mfrac} hot={hot} "
                       f"masked_rows={list(edge_rows)}"))
+        # the same on a bf16 table (mem_dtype="bfloat16": its own
+        # instantiation, rows widened on load, rounded on the write)
+        cases.append(("memory_update_table",
+                      [args[0].to(torch.bfloat16)] + args[1:],
+                      dict(clip=1.0, delta_mode="innovation"),
+                      f"bf16 table M={m} D={d} Din={din} masked={mfrac} "
+                      f"hot={hot} masked_rows={list(edge_rows)}"))
     # embed_attn: R = 1 with K = 1, all-invalid rows, dt to 1e5, K = 64;
     # CONFIG's E = 100 with 2 heads at K = 10 (dh = 50, c = 132: not
     # multiples of 8), R not a multiple of the kernel's 32-row tile at
@@ -940,6 +963,11 @@ def edge_cases(dev):
             cases.append(("memory_update", args,
                           dict(clip=1.0, delta_mode=mode),
                           f"M={m} D={d} Din={din} {mode}"))
+        # bf16 rows h (a bf16 table's), widened on load
+        cases.append(("memory_update",
+                      [args[0], args[1].to(torch.bfloat16)] + args[2:],
+                      dict(clip=1.0, delta_mode="innovation"),
+                      f"bf16 h M={m} D={d} Din={din}"))
     # flash_attn: S = 1, ragged S and T (not multiples of the 64-row
     # tiles), T != S both ways, windows (a window that leaves late rows
     # with no valid key when T < S: the mean of v), n_rep 1 / 2 / 3 / 4,
@@ -1484,7 +1512,8 @@ def _profile_train(label, cfg, opt, start, batches, negs, n):
     _report_profile(label, prof, wall_us, f"{n} train steps")
 
 
-def _step_vs_plain(cfg, opt, start, batches, negs, steps, other):
+def _step_vs_plain(cfg, opt, start, batches, negs, steps, other,
+                   k_step=None):
     """Every step of `cfg`'s route against the step of `other` (the plain
     versions of the kernels, or for the plain route the kernel route)
     taken from the SAME parameters, optimizer state and model state (and,
@@ -1493,11 +1522,12 @@ def _step_vs_plain(cfg, opt, start, batches, negs, steps, other):
     quantity over the steps: the loss, the logits, the memory table after
     the step (and the snapshot), and the optimizer's first moments (after
     one step 0.1 x the gradient) as one vector and leaf by leaf, with the
-    worst leaf's name."""
+    worst leaf's name. `k_step` replaces `cfg`'s step (a sharded step on
+    the natural carry, `_natural_step`)."""
     from repro_torch.train import pipeline
     from repro_torch.utils.tree import tree_leaves
     carry = _carry(cfg, start)
-    k_step = pipeline.make_train_step(cfg, opt)
+    k_step = k_step or pipeline.make_train_step(cfg, opt)
     p_step = pipeline.make_train_step(other, opt)
     amax = lambda t: float(t.abs().max())
     rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
@@ -2184,6 +2214,347 @@ def store_phase(label, cfg, dev, *, n_events, batch_size, n_batches,
         summary.update(n_nodes=est.num_nodes, d_edge=est.feat_dim,
                        store_mb=est.nbytes / 1e6, write_s=wrote, **carve)
     return summary
+
+
+def _shard_run(cfg, n, dev, opt, batches, negs, val, dst_range, engine):
+    """One epoch at `n` shards (all on `dev`) from the seed's parameters
+    and a fresh state, then `evaluate`; returns (per-step losses,
+    EpochResult, (val AP, val AUC), natural-layout state, launch counts,
+    seconds, scan engine or None). The scan engine draws its negatives in
+    the step from a generator seeded as the loop's draws were (the same
+    draws)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.train import loop, pipeline, routing, scan
+    c = dataclasses.replace(cfg, n_shards=n)
+    params = mdgnn.init_params(c, torch.Generator().manual_seed(0), dev)
+    state = mdgnn.init_state(c, dev)
+    if n > 1:
+        state = routing.shard_state(c, state, routing.get_mesh(n, dev))
+    losses = []
+
+    def recorded(step):
+        def run(*a, **kw):
+            out = step(*a, **kw)
+            losses.append(out[-1]["loss"])
+            return out
+        return run
+
+    eng = None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if engine == "scan":
+        eng = scan.ScanEngine(c, opt, step_hook=recorded)
+        params, _, state, res = eng.run_epoch(
+            params, opt.init(params), state, batches,
+            torch.Generator(dev).manual_seed(0), dst_range)
+    else:
+        params, _, state, res = pipeline.run_epoch(
+            params, opt.init(params), state, batches, c,
+            recorded(pipeline.make_train_step(c, opt)), None, dst_range,
+            negatives=negs)
+    _, vap, vauc = loop.evaluate(params, state, val[0], c,
+                                 loop.make_eval_step(c), None, dst_range,
+                                 negatives=val[1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if n > 1:
+        state = routing.unshard_state(c, state)
+    losses = [float(x) for x in torch.cat([x.reshape(-1) for x in losses])]
+    return losses, res, (vap, vauc), state, counts, secs, eng
+
+
+def _natural_step(cfg, opt, mesh):
+    """The train step of sharded `cfg` on a natural-layout carry: the
+    state sharded on `mesh` before the step, unsharded after it."""
+    from repro_torch.train import pipeline, routing
+    step = pipeline.make_train_step(cfg, opt)
+
+    def run(params, opt_state, state, *rest):
+        out = step(params, opt_state,
+                   routing.shard_state(cfg, state, mesh), *rest)
+        return out[:2] + (routing.unshard_state(cfg, out[2]),) + out[3:]
+
+    return run
+
+
+def _overflow_on_cpu(batches, n, budget, n_nodes):
+    """The routing plan's overflow of `batches` (each a step's memory-stage
+    batch) at `n` shards and `budget`, computed on the CPU."""
+    import torch
+    from repro_torch.train import routing
+    total = 0
+    for b in batches:
+        cb = routing.place_batch(b, torch.device("cpu"))
+        nodes, _, _, _, mask, _, _ = routing._padded_occurrences(cb, n)
+        ms = nodes.shape[0] // n
+        for s in range(n):
+            sl = slice(s * ms, (s + 1) * ms)
+            total += int(routing.bucket_plan(
+                nodes[sl].clamp(0, n_nodes - 1) % n, mask[sl], n,
+                budget)[3])
+    return total
+
+
+def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
+                shards, expect, engine="loop", noise_floor=False,
+                budget=None):
+    """Memory-parallel training at CONFIG widths, every shard on `dev`,
+    under deterministic algorithms: one epoch + evaluate at each shard
+    count of `shards` (the first 1) from the same parameters, state and
+    negatives, the path's kernels launched and no other, the memory
+    stage's kernel n times a step (memory_update_table; once for the cell
+    kernels), on the pipelined schedule pres_predict once a step, the scan
+    engine captured as `scan.captures` says. Each shard count is held to
+    one shard's run as the train phases hold two routes: every step from
+    the SAME carry (the n = 1 run's, sharded for the step and unsharded
+    after it) within STEP_TOL (loss and memory table 1e-5; not for the
+    scan engine, whose macro runs that step body), and free-running the
+    first 3 losses within 1e-5 and the train and val AP within AP_LIMIT
+    (with `noise_floor` plus the n = 1 run's own spread under a
+    rounding-sized nudge of its table, `_nudge_table`): the shards' sums
+    run in another order (each shard's backward through the plain
+    version sums its own rows), and such 1e-7 differences grow through
+    AdamW from step to step (on this path on the CPU: 2e-6 of the table
+    after 8 steps, 1e-3 after 16, 0.17 after 27). With `budget` a last
+    run at the largest shard count and that budget: its route_overflow
+    equals the plan of the same batches on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import routing, scan
+    batches = train_s.temporal_batches(batch_size, dev)
+    steps = len(batches) - 1
+    gen = torch.Generator(dev).manual_seed(0)
+    negs = [sample_negatives(gen, b, *dst_range) for b in batches[1:]]
+    vb = val_s.temporal_batches(batch_size, dev)
+    val = (vb, [sample_negatives(gen, b, *dst_range) for b in vb[1:]])
+    opt = adamw(1e-3)
+    stage = memory_stage_kernel(cfg)
+    calls = steps + len(vb) - 1
+    runs, summary = {}, {"steps": steps, "batch": batch_size}
+    with _deterministic():
+        for n in shards:
+            losses, res, ev, state, counts, secs, eng = _shard_run(
+                cfg, n, dev, opt, batches, negs, val, dst_range, engine)
+            check_launches(f"{label}-{n}", counts, expect)
+            if stage is not None:
+                per = n if stage == "memory_update_table" else 1
+                require(counts[stage] == per * calls,
+                        f"{label}-{n}: {stage} launched {counts[stage]} "
+                        f"times in {calls} steps at {n} shards")
+            if cfg.pipeline_depth:
+                require(counts["pres_predict"] == steps,
+                        f"{label}-{n}: pres_predict {counts['pres_predict']}")
+            if eng is not None:
+                require(eng.captured == (scan.captures(cfg)
+                                         and dev.type == "cuda"),
+                        f"{label}-{n}: captured {eng.captured}, "
+                        f"scan.captures says {scan.captures(cfg)} "
+                        f"({eng.eager_reason})")
+            require(np.isfinite(losses).all() and len(losses) == steps
+                    and res.route_overflow == 0,
+                    f"{label}-{n}: losses {losses[:3]}.., overflow "
+                    f"{res.route_overflow}")
+            runs[n] = (losses, res, ev, state)
+            summary[f"n{n}"] = {
+                "train_ap": res.ap, "val_ap": ev[0], "loss": res.loss,
+                "seconds": secs, "ms_per_step": secs / calls * 1e3,
+                "launches": {k: v for k, v in counts.items() if v},
+                "captured": None if eng is None else eng.captured}
+        floor = {"first_losses": 0.0, "train_ap": 0.0, "val_ap": 0.0}
+        if noise_floor:
+            b_losses, b_res, b_ev, _ = runs[1]
+            for eps in (1e-7, -1e-7, 1e-6, -1e-6):
+                with _nudge_table(eps):
+                    losses, res, ev, _, _, _, _ = _shard_run(
+                        cfg, 1, dev, opt, batches, negs, val, dst_range,
+                        engine)
+                floor["first_losses"] = max([floor["first_losses"]] + [
+                    abs(a - b) / max(abs(b), 1e-12)
+                    for a, b in zip(losses[:3], b_losses[:3])])
+                floor["train_ap"] = max(floor["train_ap"],
+                                        abs(res.ap - b_res.ap))
+                floor["val_ap"] = max(floor["val_ap"], abs(ev[0] - b_ev[0]))
+            summary["noise_floor"] = floor
+        per_step = {}
+        if engine != "scan":
+            one = dataclasses.replace(cfg, n_shards=1)
+            params = mdgnn.init_params(one, torch.Generator().manual_seed(0),
+                                       dev)
+            start = (params, opt.init(params), mdgnn.init_state(one, dev))
+            for n in shards[1:]:
+                c = dataclasses.replace(cfg, n_shards=n)
+                per_step[n] = _step_vs_plain(
+                    one, opt, start, batches, negs, steps, one,
+                    k_step=_natural_step(c, opt, routing.get_mesh(n, dev)))
+        if budget is not None:
+            n = max(shards)
+            c = dataclasses.replace(cfg, shard_budget=budget)
+            _, res, _, _, _, _, _ = _shard_run(c, n, dev, opt, batches,
+                                               negs, val, dst_range, engine)
+            want = _overflow_on_cpu(batches[:-1], n, budget, cfg.n_nodes)
+            summary["tight_budget"] = {"n_shards": n, "budget": budget,
+                                       "route_overflow": res.route_overflow,
+                                       "cpu_plan": want}
+            require(res.route_overflow == want > 0,
+                    f"{label}: route_overflow {res.route_overflow} at budget "
+                    f"{budget}, the CPU plan counts {want}")
+    l1, res1, ev1, st1 = runs[1]
+    for n in shards[1:]:
+        losses, res, ev, st = runs[n]
+        got = {"first_losses": max(abs(a - b) / max(abs(b), 1e-12)
+                                   for a, b in zip(losses[:3], l1[:3])),
+               "train_ap": abs(res.ap - res1.ap),
+               "val_ap": abs(ev[0] - ev1[0])}
+        lims = {"first_losses": STEP_TOL["loss"], "train_ap": AP_LIMIT,
+                "val_ap": AP_LIMIT}
+        table = float((st["memory"].mem - st1["memory"].mem).abs().max())
+        summary[f"n{n}"]["vs_n1"] = dict(got, memory_table=table,
+                                         per_step=per_step.get(n))
+        for k, v in got.items():
+            lim = lims[k] + floor[k]
+            require(v <= lim, f"{label}: {k} at {n} shards differs from one "
+                    f"shard's by {v:.3g} > {lim:.3g}")
+        for k, lim in STEP_TOL.items():
+            v = per_step.get(n, {}).get(k, 0.0)
+            require(v <= lim, f"{label}: a step's {k} at {n} shards differs "
+                    f"from one shard's step by {v:.3g} > {lim}")
+    log(f"[{label}] {json.dumps(summary)}")
+    return summary
+
+
+def shard_production_phase(label, cfg, train_s, dst_range, dev, *,
+                           batch_size, n_batches, n_shards, expect):
+    """PRODUCTION widths at `n_shards` shards on `dev`: `n_batches - 1`
+    steps at `batch_size` from the seed's parameters (the negatives drawn
+    as train_phase draws them), step ms (device-synced, median past the
+    first) and peak memory; memory_update_table n_shards times a step; the
+    first 3 losses against the unsharded step's from the same start."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, routing
+    batches = train_s.temporal_batches(batch_size, dev)[:n_batches]
+    steps = len(batches) - 1
+    gen = torch.Generator(dev).manual_seed(0)
+    negs = [sample_negatives(gen, b, *dst_range) for b in batches[1:]]
+    opt = adamw(1e-3)
+    c = dataclasses.replace(cfg, n_shards=n_shards)
+    params = mdgnn.init_params(c, torch.Generator().manual_seed(0), dev)
+    start = (params, opt.init(params), mdgnn.init_state(c, dev))
+    carry = _clone(*start)
+    carry = carry[:2] + (routing.shard_state(
+        c, carry[2], routing.get_mesh(n_shards, dev)),)
+    step = loop.make_train_step(c, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    secs, losses = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *carry, m = step(*carry, batches[i], batches[i + 1], negs[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check_launches(label, counts, expect)
+    require(counts["memory_update_table"] == n_shards * steps,
+            f"{label}: memory_update_table {counts['memory_update_table']} "
+            f"times in {steps} steps at {n_shards} shards")
+    losses = [float(x) for x in losses]
+    one = dataclasses.replace(cfg, n_shards=1)
+    carry1, want = _clone(*start), []
+    step1 = loop.make_train_step(one, opt)
+    for i in range(3):
+        *carry1, m = step1(*carry1, batches[i], batches[i + 1], negs[i])
+        want.append(float(m["loss"]))
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, want)]
+    summary = {"steps": steps, "batch": batch_size, "n_shards": n_shards,
+               "first_step_ms": secs[0] * 1e3,
+               "step_ms_median": float(np.median(secs[1:])) * 1e3,
+               "train_events_per_s": (steps - 1) * batch_size
+               / sum(secs[1:]), "peak_mem_mb": peak_mb,
+               "first_losses": losses[:3], "unsharded_first_losses": want}
+    log(f"[{label}] {json.dumps(summary)}")
+    require(np.isfinite(losses).all() and max(rel) <= 1e-4,
+            f"{label}: first losses {losses[:3]} against the unsharded "
+            f"step's {want}")
+    return summary
+
+
+def bf16_phase(label, cfg, train_s, dst_range, dev, *, batch_size,
+               n_batches, expect):
+    """A bfloat16 memory table (mem_dtype="bfloat16"): `n_batches - 1`
+    train steps through the kernels, timed, the table kernel's bf16
+    instantiation launched once a step; its largest inputs captured and
+    the instantiation held against its plain version there (each written
+    row within one bf16 ulp, s_meas / fused / delta within TOL, last_t
+    exact). Returns (launch counts, captured inputs, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.kernels import ops
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    c = dataclasses.replace(cfg, mem_dtype="bfloat16")
+    batches = train_s.temporal_batches(batch_size, dev)
+    if n_batches:
+        batches = batches[:n_batches]
+    steps = len(batches) - 1
+    gen = torch.Generator(dev).manual_seed(0)
+    negs = [sample_negatives(gen, b, *dst_range) for b in batches[1:]]
+    opt = adamw(1e-3)
+    params = mdgnn.init_params(c, torch.Generator().manual_seed(0), dev)
+    carry = (params, opt.init(params), mdgnn.init_state(c, dev))
+    step = loop.make_train_step(c, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    secs, losses = [], []
+    with Capture(names=["memory_update_table"], latest=False) as cap:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *carry, m = step(*carry, batches[i], batches[i + 1], negs[i])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+    counts = ops.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check_launches(label, counts, expect)
+    require(counts["memory_update_table"] == steps,
+            f"{label}: memory_update_table {counts['memory_update_table']} "
+            f"times in {steps} steps")
+    table = carry[2]["memory"].mem
+    require(table.dtype == torch.bfloat16
+            and bool(torch.isfinite(table.float()).all()),
+            f"{label}: the table is {table.dtype}, or not finite")
+    losses = [float(x) for x in losses]
+    require(np.isfinite(losses).all(), f"{label}: losses {losses}")
+    inputs = dict(cap.best)
+    _, a, kw = inputs["memory_update_table"]
+    require(a[0].dtype == torch.bfloat16, f"{label}: captured an fp32 table")
+    err = check_kernel("memory_update_table", a, kw, f"{label} inputs")
+    summary = {"steps": steps, "batch": batch_size,
+               "first_step_ms": secs[0] * 1e3,
+               "step_ms_median": float(np.median(secs[1:])) * 1e3,
+               "peak_mem_mb": peak_mb, "loss_last": losses[-1],
+               "table_max_abs_err": err,
+               "shape": shape_of("memory_update_table", a)}
+    log(f"[{label}] {json.dumps(summary)}")
+    return counts, inputs, summary
 
 
 def cli_store_phase(label, expect):
@@ -3058,14 +3429,17 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-production-apan", "train-production-rnn",
           "train-production-jodie", "train-config-scan",
           "train-production-scan", "train-production-store", "cli-store",
-          "cli-obs") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
+          "cli-obs", "train-config-shards", "train-production-shard4",
+          "train-config-bf16", "train-production-bf16", "cli-shards"
+          ) + tuple(ZOO) + tuple(TRAIN_ZOO) + (
               "train-zoo-reduced", "cli-zoo", "autotune")
 
 
-def kernel_row(name, spec, phase, inputs, counts):
+def kernel_row(name, spec, phase, inputs, counts, row_name=None):
     """Check the kernel on the inputs its phase captured, time it, its
     plain version and (where one exists) the library yardstick, and set
-    the bound beside them."""
+    the bound beside them. `row_name` names a row of another
+    instantiation (the table kernel on a bf16 table)."""
     import torch
     from repro_torch.kernels import ops
     _, a, kw = inputs[name]
@@ -3099,7 +3473,7 @@ def kernel_row(name, spec, phase, inputs, counts):
         library_ms = time_ms(lib)
         lib_dev_ms = device_ms(lib)
     b_ms, b_by = bound(name, a, kw)
-    row = {"name": name, "phase": phase, "route": "cuda",
+    row = {"name": row_name or name, "phase": phase, "route": "cuda",
            "source": SOURCES[name],
            "replaces": spec.replaces, "launches": counts[name],
            "max_abs_err": err, "tol": TOL[name], "ms": ms,
@@ -3466,6 +3840,56 @@ def main(argv=None):
         train_sum["cli-obs"] = timed("cli-obs", cli_obs_phase, "cli-obs",
                                      card, pres_path, SERVE_KERNELS)
 
+    # 12. memory-parallel training, every shard on this card: CONFIG at 1,
+    # 2 and 4 shards (then 4 for the other engines and routes, and a tight
+    # budget), PRODUCTION at 4 beside train-production-pres; bf16 tables
+    bf16_rows = {}
+    if "train-config-shards" in only:
+        def shards(suffix, c, expect, ns=(1, 4), **kw):
+            name = f"train-config-shards{suffix}"
+            train_sum[name] = timed(
+                name, shard_phase, name, c, train_s, val_s, wiki_dst, dev,
+                batch_size=500, shards=ns, expect=expect, **kw)
+
+        # budget 32 a lane: 1,000 occurrences a step over 4 senders and 4
+        # owners load a lane with about 62
+        shards("", cfg, pres_path, ns=(1, 2, 4), budget=32)
+        shards("-pipe", rp(cfg, **pipe), pipe_path)
+        shards("-apan", rp(cfg, **apan), na_path)
+        # JODIE's raw-time projection moves its free-running epoch by more
+        # than the limits under a rounding-sized perturbation (as in
+        # train-config-jodie): held to the limits beyond that spread
+        shards("-jodie", rp(cfg, **jodie), ("memory_update_table",),
+               noise_floor=True)
+        shards("-plain", rp(cfg, use_kernels=False), ())
+        shards("-scan", rp(cfg, scan_chunk=8), pres_path, engine="scan")
+    if "train-production-shard4" in only:
+        train_sum["train-production-shard4"] = timed(
+            "train-production-shard4", shard_production_phase,
+            "train-production-shard4", pcfg, head, s_dst, dev,
+            batch_size=1000, n_batches=41, n_shards=4, expect=pres_path)
+        got = train_sum["train-production-shard4"]["step_ms_median"]
+        lag = train_sum.get("train-production-pres", {})
+        log(f"[train-production-shard4] step ms {got:.3f} beside "
+            f"train-production-pres's median {lag.get('step_ms_median')}")
+    if "train-config-bf16" in only:
+        counts, inputs, train_sum["train-config-bf16"] = timed(
+            "train-config-bf16", bf16_phase, "train-config-bf16", cfg,
+            train_s, wiki_dst, dev, batch_size=500, n_batches=None,
+            expect=pres_path)
+        bf16_rows["config"] = (inputs, counts)
+    if "train-production-bf16" in only:
+        counts, inputs, train_sum["train-production-bf16"] = timed(
+            "train-production-bf16", bf16_phase, "train-production-bf16",
+            pcfg, head, s_dst, dev, batch_size=1000, n_batches=41,
+            expect=pres_path)
+        bf16_rows["production"] = (inputs, counts)
+    if "cli-shards" in only:
+        train_sum["cli-shards"] = timed(
+            "train-cli-shards", cli_phase, "train-cli-shards",
+            cli + ["--pres", "--n-shards", "4", "--device", "cuda:0"],
+            pres_path)
+
     # 9. the model zoo at full width: prefill (the zoo's kernels) and
     # decode, then the decode CLI for every ported arch
     zoo_sum = {}
@@ -3506,15 +3930,22 @@ def main(argv=None):
             row = kernel_row(name, spec_, phase, inputs, counts)
             (rows if phase in ("config", "zoo") else
              zoo_rows if phase.startswith("zoo-") else more_rows).append(row)
+    for phase, (inputs, counts) in bf16_rows.items():
+        row = kernel_row("memory_update_table",
+                         ops.REGISTRY["memory_update_table"], phase, inputs,
+                         counts, row_name="memory_update_table_bf16")
+        (rows if phase == "config" else more_rows).append(row)
     if only == set(PHASES):
         names = sorted(ops.REGISTRY)
         want_zoo = sorted((k, key) for label, z in ZOO.items()
                           if label not in ZOO_LINE for k in z[3]
                           for key in ([label, f"{label}-local"] if z[4]
                                       else [label]))
-        require(sorted(r["name"] for r in rows) == names
+        require(sorted(r["name"] for r in rows)
+                == sorted(names + ["memory_update_table_bf16"])
                 and sorted({r["name"] for r in more_rows})
-                == sorted(set(names) - set(ZOO_KERNELS))
+                == sorted(set(names) - set(ZOO_KERNELS)
+                          | {"memory_update_table_bf16"})
                 and sorted((r["name"], r["phase"]) for r in zoo_rows)
                 == want_zoo,
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")

@@ -36,6 +36,26 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def _is_bf16(a) -> bool:
+    """A bf16 numpy array: JAX's `ml_dtypes.bfloat16`, or the raw `|V2`
+    bf16 values a checkpoint holds."""
+    dt = np.asarray(a).dtype
+    return dt.name == "bfloat16" or dt == np.dtype("V2")
+
+
+def _memory_rows(a, device):
+    """The memory table: bf16 where the array is bf16 (carried as fp32,
+    exact, then rounded back, which changes no value), else fp32."""
+    if not _is_bf16(a):
+        return _tensor(a, torch.float32, device)
+    a = np.asarray(a)
+    if a.dtype == np.dtype("V2"):
+        from repro_torch.checkpoint.io import bf16_bits_to_tensor
+        return bf16_bits_to_tensor(a).to(device)
+    return _tensor(a.astype(np.float32), torch.float32,
+                   device).to(torch.bfloat16)
+
+
 def _with_dump(a, fill):
     """Append the port's trailing dump row to a node-indexed array."""
     a = np.asarray(a)
@@ -51,12 +71,12 @@ def params_from_numpy(tree, device=None) -> dict:
 
 def state_from_numpy(tree, device=None) -> dict:
     """The port's runtime state from the JAX state layout (adds the dump
-    rows of the rings and trackers)."""
+    rows of the rings and trackers). A bf16 memory table stays bf16."""
     dev = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     mem, nb, pr = tree["memory"], tree["neighbors"], tree["pres"]
     state = {
-        "memory": MemoryState(mem=_tensor(mem["mem"], f32, dev),
+        "memory": MemoryState(mem=_memory_rows(mem["mem"], dev),
                               last_update=_tensor(mem["last_update"], f32,
                                                   dev)),
         "neighbors": {"nbr": _tensor(_with_dump(nb["nbr"], -1), i32, dev),
@@ -76,7 +96,8 @@ def state_from_numpy(tree, device=None) -> dict:
 
 
 def state_to_numpy(state) -> dict:
-    """The JAX state layout as numpy arrays (dump rows dropped)."""
+    """The JAX state layout as numpy arrays (dump rows dropped; a bf16
+    memory table as float32, exact)."""
     mem, nb, pr = state["memory"], state["neighbors"], state["pres"].rows()
     out = {
         "memory": {"mem": _np(mem.mem), "last_update": _np(mem.last_update)},
@@ -89,7 +110,10 @@ def state_to_numpy(state) -> dict:
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    """numpy of a tensor; a bf16 one as float32 (exact: numpy has no
+    bf16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def pipeline_state_from_numpy(tree, device=None):

@@ -18,7 +18,14 @@ The manifest is written and read here, byte for byte as msgpack packs it
 (a fixmap of str keys, str values as fixstr / str8 / str16 / str32 and
 non-negative ints in their shortest form), so the port needs no msgpack.
 Restoring checks the leaf count, the treedef string and every leaf's
-shape against a template before any tensor reaches the device."""
+shape against a template before any tensor reaches the device.
+
+A bfloat16 leaf (a `mem_dtype="bfloat16"` memory table) is stored as the
+JAX package stores one: numpy has no bf16, and `np.savez` of JAX's
+`ml_dtypes.bfloat16` array writes its raw 2-byte values as a `|V2` array.
+The port writes the same bytes and reads a `|V2` leaf back as bf16 bits,
+cast to the template leaf's dtype (an fp32 leaf into a bf16 template is
+rounded to nearest even)."""
 from __future__ import annotations
 
 import dataclasses
@@ -78,16 +85,41 @@ def treedef_str(tree) -> str:
     return _flatten(tree)[1]
 
 
+# numpy's view of a bf16 leaf: its raw 2-byte values (JAX's file format)
+BF16_BITS = np.dtype("V2")
+
+
 def _as_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
 
 
-def _np_dtype(x):
-    if isinstance(x, torch.Tensor):
-        return torch.empty((), dtype=x.dtype).numpy().dtype
-    return np.asarray(x).dtype
+def bf16_bits_to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A `|V2` array of bf16 values as a bfloat16 tensor (on the CPU)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                            ).view(torch.bfloat16)
+
+
+def _cast_leaf(arr: np.ndarray, ref) -> np.ndarray:
+    """A saved leaf in the template leaf's dtype; a bf16 template gets
+    bf16 bits (`|V2`)."""
+    bits = arr.dtype == BF16_BITS
+    if isinstance(ref, torch.Tensor) and ref.dtype == torch.bfloat16:
+        if bits:
+            return arr
+        return _as_numpy(torch.from_numpy(np.asarray(arr, np.float32))
+                         .to(torch.bfloat16))
+    if isinstance(ref, torch.Tensor):
+        want = torch.empty((), dtype=ref.dtype).numpy().dtype
+    else:
+        want = np.asarray(ref).dtype
+    if bits:
+        arr = bf16_bits_to_tensor(arr).float().numpy()
+    return arr.astype(want)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +232,7 @@ def save_checkpoint(path: str, tree) -> None:
 
 def read_checkpoint(path: str, like_tree):
     """The tree of `like_tree`'s structure with numpy leaves, each cast to
-    the template leaf's dtype. The leaf count, the tree structure and every
+    the template leaf's dtype (a bf16 one as `|V2` bf16 bits). The leaf count, the tree structure and every
     leaf's shape are checked against the template first, and a mismatch
     (a checkpoint written under another model config) raises ValueError
     with the JAX module's messages."""
@@ -228,7 +260,7 @@ def read_checkpoint(path: str, like_tree):
                 f"checkpoint {path} leaf {i} has shape {tuple(arr.shape)} "
                 f"but the restore template expects {tuple(ref.shape)} — "
                 f"config mismatch (e.g. d_mem / n_nodes / n_layers)")
-        out.append(arr.astype(_np_dtype(ref)))
+        out.append(_cast_leaf(arr, ref))
     return _unflatten(like_tree, out)
 
 
@@ -239,4 +271,6 @@ def load_checkpoint(path: str, like_tree, device=None):
     dev = resolve_device(device)
     tree = read_checkpoint(path, like_tree)
     leaves, _ = _flatten(tree)
-    return _unflatten(tree, [torch.from_numpy(a).to(dev) for a in leaves])
+    return _unflatten(tree, [
+        (bf16_bits_to_tensor(a) if a.dtype == BF16_BITS
+         else torch.from_numpy(a)).to(dev) for a in leaves])

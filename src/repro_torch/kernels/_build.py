@@ -41,6 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_memory_update_table": [_P, _P, _I64, _I, _P, _I, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
+    "repro_memory_update_table_bf16": [_P, _P, _I64, _I, _P, _I, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _F, _I, _I, _P,
+                                       _P, _P, _P, _P],
     "repro_embed_attn": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P,
                          _P, _P, _I, _I, _P, _P],
     "repro_link_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -50,6 +53,8 @@ SIGNATURES = {
     "repro_pres_filter": [_P, _P, _P, _P, _P, _I64, _I, _F, _I, _P, _P, _P],
     "repro_memory_update": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _I,
                             _I, _P, _P, _P, _P],
+    "repro_memory_update_bf16": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F,
+                                 _I, _I, _P, _P, _P, _P, _P],
     "repro_flash_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "repro_flash_attn_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
                                _P],

@@ -100,6 +100,10 @@ def table_vjp(forward, update_ref):
         occurrence that wrote it (and of `last_t` onto `times`); the table
         rows it overwrote get none, the rows it gathered get the gradient
         of h.
+    With a bfloat16 table, h is widened to float32 (the math is float32,
+    as in the kernel) and a written row's cotangent reaches `fused` as
+    float32, as the cast in JAX's oracle passes it on; the table's own
+    cotangent keeps the table's dtype.
     Indices get no gradient."""
 
     class TableVJP(torch.autograd.Function):
@@ -128,7 +132,8 @@ def table_vjp(forward, update_ref):
             wic = torch.clamp(wi, max=n - 1)
             zero = torch.zeros((), dtype=g_table.dtype,
                                device=g_table.device)
-            g_fused = g_fused + torch.where(sel[:, None], g_table[wic], zero)
+            g_fused = g_fused + torch.where(sel[:, None],
+                                            g_table[wic].float(), zero)
             # the saved tensors by their position among the Function's
             # inputs; the table's gradient reaches it through h (position
             # 1, which itself takes none)
@@ -158,7 +163,8 @@ def table_vjp(forward, update_ref):
                 gi = gather_idx.long()
                 ok = gi < n
                 g_tab.index_add_(0, torch.clamp(gi, max=n - 1),
-                                 torch.where(ok[:, None], got[1], zero))
+                                 torch.where(ok[:, None], got[1],
+                                             zero).to(g_tab.dtype))
                 res[2] = g_tab
             if need[3]:
                 res[3] = torch.where(written, zero, g_last_t)
@@ -174,7 +180,8 @@ def table_vjp(forward, update_ref):
                 delta_mean, scale, gamma)
         if not torch.is_grad_enabled():
             return forward(*args, mode=mode, **static)
-        h = gather_rows(table, gather_idx) if h is None else h.detach()
+        h = (gather_rows(table, gather_idx) if h is None
+             else h.detach()).float()
         return TableVJP.apply((mode, static), h, *args)
 
     return f

@@ -38,6 +38,16 @@
 // (pres_rows.cuh) on the registers, so s_meas never goes back to memory
 // before it. M = 2048, D = 128 gives 32 x 8 = 256 blocks; CONFIG's
 // M = 512, D = 100 gives 8 x 7 = 56.
+//
+// A bfloat16 table (JAX's mem_dtype="bfloat16"; the Pallas kernels cast
+// each row to fp32 on load and write the table's dtype) takes three
+// launches: the touched rows are gathered and widened to fp32 into a
+// caller-given (M, D) scratch (exact: every bf16 value is an fp32 value),
+// phase 1 runs on those rows in its dense form, and the scatter rounds
+// each fused row to the nearest bf16, ties to even. last_t, the messages,
+// s_meas, fused and delta stay fp32. The dense memory_update takes bf16 h
+// rows the same way, widened into the scratch first.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,6 +98,31 @@ __global__ void memory_update_scatter_kernel(
     if (wi < 0 || wi >= n_rows) return;
     for (int c = threadIdx.x; c < d; c += blockDim.x)
         table[wi * d + c] = fused[(int64_t)r * d + c];
+    if (threadIdx.x == 0) last_t[wi] = times[r];
+}
+
+// bf16 rows h[gidx[r]] (gidx = nullptr: h[r]) widened to fp32 into
+// out (m, d); an index outside [0, n_rows) gives a row of zeros
+__global__ void widen_bf16_rows_kernel(
+        const __nv_bfloat16* __restrict__ h, int64_t n_rows, int d,
+        const int32_t* __restrict__ gidx, float* __restrict__ out) {
+    const int r = blockIdx.x;
+    const int64_t g = gidx ? (int64_t)gidx[r] : r;
+    const bool ok = g >= 0 && g < n_rows;
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+        out[(int64_t)r * d + c] = ok ? __bfloat162float(h[g * d + c]) : 0.0f;
+}
+
+// Phase 2 on a bf16 table: the fused row rounded to nearest even
+__global__ void memory_update_scatter_bf16_kernel(
+        __nv_bfloat16* __restrict__ table, float* __restrict__ last_t,
+        int64_t n_rows, int d, const int32_t* __restrict__ widx,
+        const float* __restrict__ times, const float* __restrict__ fused) {
+    const int r = blockIdx.x;
+    const int64_t wi = widx[r];
+    if (wi < 0 || wi >= n_rows) return;
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+        table[wi * d + c] = __float2bfloat16_rn(fused[(int64_t)r * d + c]);
     if (threadIdx.x == 0) last_t[wi] = times[r];
 }
 
@@ -144,4 +179,45 @@ extern "C" int repro_memory_update(
     return launch_rows(h, m, d, x, din, nullptr, w, u, b, dmean, scale,
                        gamma, clip, innovation, m, s_meas, fused, delta,
                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_memory_update_table_bf16(
+        void* table, void* last_t, int64_t n_rows, int d,
+        const void* x, int din, const void* gidx, const void* widx,
+        const void* times, const void* w, const void* u, const void* b,
+        const void* dmean, const void* scale, const void* gamma, float clip,
+        int innovation, int m, void* s_meas, void* fused, void* delta,
+        void* h_scratch, void* stream) {
+    if (m <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    widen_bf16_rows_kernel<<<m, 128, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(table), n_rows, d,
+        static_cast<const int32_t*>(gidx), static_cast<float*>(h_scratch));
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    err = launch_rows(h_scratch, m, d, x, din, nullptr, w, u, b, dmean, scale,
+                      gamma, clip, innovation, m, s_meas, fused, delta, st);
+    if (err != 0) return err;
+    memory_update_scatter_bf16_kernel<<<m, 128, 0, st>>>(
+        static_cast<__nv_bfloat16*>(table), static_cast<float*>(last_t),
+        n_rows, d, static_cast<const int32_t*>(widx),
+        static_cast<const float*>(times), static_cast<const float*>(fused));
+    return (int)cudaGetLastError();
+}
+
+extern "C" int repro_memory_update_bf16(
+        const void* x, int din, const void* h, int d, const void* w,
+        const void* u, const void* b, const void* dmean, const void* scale,
+        const void* gamma, float clip, int innovation, int m, void* s_meas,
+        void* fused, void* delta, void* h_scratch, void* stream) {
+    if (m <= 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    widen_bf16_rows_kernel<<<m, 128, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(h), m, d, nullptr,
+        static_cast<float*>(h_scratch));
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    return launch_rows(h_scratch, m, d, x, din, nullptr, w, u, b, dmean,
+                       scale, gamma, clip, innovation, m, s_meas, fused,
+                       delta, st);
 }

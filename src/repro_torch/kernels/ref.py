@@ -46,7 +46,9 @@ def pres_filter_ref(s_prev, s_meas, delta_mean, dt, gamma, clip=5.0,
 def memory_update_ref(x, h, w, u, b, delta_mean, scale, gamma, clip=5.0,
                       delta_mode="innovation"):
     """GRU measurement -> PRES filter over the touched rows. Returns
-    (s_meas, fused, delta_rate), each (M, D)."""
+    (s_meas, fused, delta_rate), each (M, D) float32; bfloat16 rows h are
+    widened to float32 first, as the JAX kernel casts them on load."""
+    h = h.float()
     s_meas = gru_cell_ref(x, h, w, u, b)
     fused, delta = pres_filter_ref(h, s_meas, delta_mean, scale, gamma,
                                    clip=clip, delta_mode=delta_mode)
@@ -61,7 +63,10 @@ def memory_update_table_ref(table, last_t, x, gather_idx, write_idx, times,
     times into `table` / `last_t` at write_idx (indices >= N are dropped).
 
     Updates `table` and `last_t` IN PLACE (the JAX version donates and
-    aliases them) and returns (table, last_t, s_meas, fused, delta). Every
+    aliases them) and returns (table, last_t, s_meas, fused, delta). A
+    bfloat16 table's rows are widened to float32 for the math and the
+    fused rows rounded to bfloat16 (nearest, ties to even) as they are
+    written, as the JAX kernel casts on load and store. Every
     row is gathered before any is written, and each valid node has one
     selected occurrence, so the writes are unique."""
     n = table.shape[0]
@@ -69,7 +74,7 @@ def memory_update_table_ref(table, last_t, x, gather_idx, write_idx, times,
     ok = (g < n)[:, None]
     h = torch.where(ok, table[torch.clamp(g, max=n - 1)],
                     torch.zeros((), dtype=table.dtype, device=table.device))
-    s_meas, fused, delta = memory_update_ref(x, h, w, u, b, delta_mean,
+    s_meas, fused, delta = memory_update_ref(x, h.float(), w, u, b, delta_mean,
                                              scale, gamma, clip=clip,
                                              delta_mode=delta_mode)
     wi = write_idx.long()

@@ -37,10 +37,11 @@ histograms, host spans, the kernel-dispatch table), and `--trace-dir DIR`
 captures a `torch.profiler` trace of the first `--trace-steps` ingest
 calls.
 
-It keeps the JAX CLI's flags. A model configuration outside the ported
-slices raises NotImplementedError naming the ROADMAP item that ports it
-(mdgnn.check_supported). It runs on CUDA unless `--device cpu` is
-given."""
+It keeps the JAX CLI's flags. A value no configuration defines raises
+ValueError (mdgnn.check_supported), and so does a sharded configuration:
+serving has no sharded path, as in JAX (a sharded run's checkpoint is
+written in the natural layout and serves as any other). It runs on CUDA
+unless `--device cpu` is given."""
 from __future__ import annotations
 
 import argparse

@@ -29,10 +29,17 @@ which the JAX package's `tools/inspect_run.py` renders; `--trace-dir DIR`
 captures a `torch.profiler` trace of the first `--trace-steps` step (or
 macro-step) calls.
 
-It keeps the JAX CLI's flags. `--n-shards` and `--shard-budget` raise
-NotImplementedError naming the ROADMAP item that ports them, and so does
-any model configuration outside the ported slices
-(mdgnn.check_supported). It runs on CUDA unless `--device cpu` is given.
+`--n-shards N` (N > 1) trains memory-parallel (train/routing.py): the
+node tables are sharded by node id % N, one process drives every shard,
+and the touched rows are routed to their owners each step; the shards
+go on `--device` (`cpu`, or one card such as `cuda:0`) or, with the
+default bare `cuda`, shard i on `cuda:i` (a ValueError names the visible
+count when fewer cards are visible). `--shard-budget` tightens the
+per-lane routing budget (overflow counted in the run-log). The
+checkpoint is written in the natural single-device layout.
+
+It keeps the JAX CLI's flags. It runs on CUDA unless `--device cpu` is
+given.
 Parameters and negatives are drawn from `--seed` with torch generators,
 not jax.random, so a run is not the JAX run's bit for bit."""
 from __future__ import annotations
@@ -57,15 +64,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import sink
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
-from repro_torch.train import loop, pipeline, scan
-
-# flag -> the ROADMAP item that ports it
-_NOT_YET = {
-    "n_shards": "Queue 1 item 18 (memory parallelism)",
-    "shard_budget": "Queue 1 item 18 (memory parallelism)",
-}
-# flags whose default means "off"
-_OFF = {"n_shards": 1}
+from repro_torch.train import loop, pipeline, routing, scan
 
 
 def kernels_line(device, mode: str) -> str:
@@ -133,9 +132,17 @@ def main(argv=None):
                          "a macro where the step has no host sync; 1 = the "
                          "lag-one loop. Excludes --pipeline-depth >= 1")
     ap.add_argument("--n-shards", type=int, default=1,
-                    help="not ported yet (raises unless 1)")
+                    help="memory-parallel shards: every node-indexed table "
+                         "partitioned by node_id %% n_shards, the touched "
+                         "rows routed to their owners with one all_to_all "
+                         "a step; the shards go on --device (cpu, or one "
+                         "card such as cuda:0), or shard i on cuda:i with "
+                         "the default")
     ap.add_argument("--shard-budget", type=int, default=None,
-                    help="not ported yet (raises)")
+                    help="static per-(sender, owner) routing-lane budget; "
+                         "default derives the overflow-free bound, smaller "
+                         "values trade dropped updates (counted in "
+                         "route_overflow) for smaller exchanges")
     ap.add_argument("--checkpoint", default=None,
                     help="save the {params, state} bundle here after the "
                          "last epoch")
@@ -153,13 +160,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
     args = ap.parse_args(argv)
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag) not in (_OFF.get(flag), False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet; ROADMAP "
-                f"{item} ports it")
 
-    device = resolve_device(args.device)
+    mesh = (routing.get_mesh(args.n_shards, args.device)
+            if args.n_shards > 1 else None)
+    device = mesh[0] if mesh else resolve_device(args.device)
     streamed = args.event_store is not None
     if streamed:
         from repro_torch.graph.store import EventStore
@@ -182,7 +186,8 @@ def main(argv=None):
         pres_scale=args.pres_scale, dedup_embed=not args.no_dedup_embed,
         use_kernels=args.use_kernels, kernels_mode=args.kernels_mode,
         pipeline_depth=args.pipeline_depth, scan_chunk=args.scan_chunk,
-        event_store=args.event_store,
+        event_store=args.event_store, n_shards=args.n_shards,
+        shard_budget=args.shard_budget,
         obs_metrics=args.metrics_out is not None)
     check_supported(cfg)
     scan.check_schedule(cfg)
@@ -192,6 +197,15 @@ def main(argv=None):
     state = init_state(cfg, device)
     opt = adamw(args.lr)
     opt_state = opt.init(params)
+    if mesh:
+        # the node tables in the shard-major layout on their shards; the
+        # parameters and the optimizer stay on the controller (shard 0's
+        # device), and the engines route behind cfg.n_shards
+        state = routing.shard_state(cfg, state, mesh)
+        print(f"[dist] memory-parallel over {cfg.n_shards} shards "
+              f"({len(set(mesh))} device(s): {mesh[0]}"
+              f"{' ..' if len(set(mesh)) > 1 else ''}, "
+              f"budget={cfg.shard_budget or 'auto'})")
     runlog = None
     if args.metrics_out:
         obs_trace.enable()
@@ -257,7 +271,10 @@ def main(argv=None):
                 ev = sum(res.obs["series"].get("events", []))
                 if res.seconds > 0:
                     rec["events_per_sec"] = ev / res.seconds
-            if cfg.use_pres:
+                if "route_overflow_shards" in res.obs:
+                    rec["route_overflow_shards"] = \
+                        res.obs["route_overflow_shards"]
+            if cfg.use_pres and cfg.n_shards == 1:
                 rec["gmm_health"] = obs_metrics.gmm_health(state["pres"])
             if engine is not None:
                 rec["scan_captured"] = engine.captured
@@ -266,6 +283,10 @@ def main(argv=None):
               f"val_ap={vap:.4f} val_auc={vauc:.4f} ({res.seconds:.1f}s)")
     if tracer is not None:
         tracer.stop()
+    if mesh:
+        # the natural single-device layout, so that an unsharded run (the
+        # serve CLI, or the JAX package's) restores the checkpoint
+        state = routing.unshard_state(cfg, state)
     if args.checkpoint:
         save_checkpoint(args.checkpoint, bridge.mdgnn_bundle(params, state))
         print(f"[ckpt] saved to {args.checkpoint}")

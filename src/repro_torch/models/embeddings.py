@@ -100,8 +100,9 @@ def _tgn_layer_compact(params, layer_params, h_self, h_child, t_self, child,
 def _hop_rows(mem, hops):
     # index_select, not mem[idx]: the backward of an indexing gather
     # accumulates duplicates one warp per index, and padded or empty slots
-    # all read node 0; index_select's backward is index_add_
-    return [mem.mem.index_select(0, hop["nodes"]) for hop in hops]
+    # all read node 0; index_select's backward is index_add_. A bf16
+    # table's rows are widened to fp32, as JAX's .astype(f32)
+    return [mem.mem.index_select(0, hop["nodes"]).float() for hop in hops]
 
 
 def _tgn_apply_dedup(params, cfg, state, nodes, t_query):
@@ -150,7 +151,7 @@ def jodie_apply(params, cfg, state, nodes, t_query):
     h = tanh(h W). The memory rows are on the gradient path, so they are
     gathered with index_select."""
     mem = state["memory"]
-    s = mem.mem.index_select(0, nodes)
+    s = mem.mem.index_select(0, nodes).float()
     l0 = params["emb"]["l0"]
     dt = (t_query - mem.last_update.index_select(0, nodes))[:, None]
     h = torch.tanh((s * (1.0 + dt * l0["w_proj"][0])) @ l0["w_out"])

@@ -4,9 +4,10 @@ MESSAGE stage and its per-occurrence bookkeeping, the batch-parallel memory
 update and its sequential oracle, APAN's mailbox, the embedding entry point
 and the link and node decoders.
 
-Only the configurations the ported slices implement are accepted
-(`check_supported`); every other option raises NotImplementedError naming
-the ROADMAP item that ports it."""
+`check_supported` raises ValueError for a value the reference does not
+define. With n_shards > 1 the node tables are sharded and the engines
+route through `train/routing.py`; with mem_dtype="bfloat16" the memory
+rows are stored in bf16 and widened to fp32 wherever they are read."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,15 +60,9 @@ class MDGNNConfig:
     obs_metrics: bool = False
 
 
-# field -> (the values the ported slices implement, the ROADMAP item
-# porting others)
-_SUPPORTED = {
-    "mem_dtype": (("float32",), "Queue 1 item 18 (mem_dtype='bfloat16')"),
-    "n_shards": ((1,), "Queue 1 item 18 (memory parallelism)"),
-    "shard_budget": ((None,), "Queue 1 item 18 (memory parallelism)"),
-}
 # field -> every value the reference defines
 _CHOICES = {
+    "mem_dtype": ("float32", "bfloat16"),
     "variant": ("tgn", "jodie", "apan"),
     "memory_cell": ("gru", "rnn"),
     "aggregator": ("last", "mean"),
@@ -77,20 +72,19 @@ _CHOICES = {
 
 
 def check_supported(cfg: MDGNNConfig) -> None:
-    """Raise NotImplementedError for any option outside the ported slices,
-    and ValueError for a value the reference does not define.
+    """Raise ValueError for a value the reference does not define, and for
+    n_shards < 1 or shard_budget < 1.
 
     Every `pres_buckets` and `use_kernels` value is accepted (False: the
     plain route, which launches no kernel). So is every
     `anchor_fraction`, which, as in the JAX engine, nothing reads: the
     anchor mask is `pres.make_anchor_mask`, passed to
     `pres.update_trackers` by its caller."""
-    for field, (values, item) in _SUPPORTED.items():
-        got = getattr(cfg, field)
-        if got not in values:
-            raise NotImplementedError(
-                f"repro_torch implements {field}={values[0]!r} only, got "
-                f"{got!r}; ROADMAP {item} ports the rest")
+    if cfg.n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {cfg.n_shards}")
+    if cfg.shard_budget is not None and cfg.shard_budget < 1:
+        raise ValueError(f"shard_budget must be >= 1 (or None: the "
+                         f"overflow-free default), got {cfg.shard_budget}")
     for field, values in _CHOICES.items():
         if getattr(cfg, field) not in values:
             raise ValueError(f"unknown {field} {getattr(cfg, field)!r}; "
@@ -173,10 +167,13 @@ def init_state(cfg: MDGNNConfig, device=None) -> dict:
     and for APAN an empty mailbox (`msg` (N + 1, mailbox_size, d_msg), `t`
     (N + 1, mailbox_size), `ptr` (N + 1,)). The trackers have a row per
     node, or per hash bucket with `pres_buckets`. Rings, trackers and
-    mailbox carry a trailing dump row (see core/)."""
+    mailbox carry a trailing dump row (see core/). The memory rows take
+    cfg.mem_dtype; `last_update` and everything else stay float32. The
+    state is in the natural layout: `routing.shard_state` shards it."""
     dev = resolve_device(device)
     state = {
-        "memory": MemoryState.init(cfg.n_nodes, cfg.d_mem, dev),
+        "memory": MemoryState.init(cfg.n_nodes, cfg.d_mem, dev,
+                                   dtype=getattr(torch, cfg.mem_dtype)),
         "neighbors": batching.init_neighbors(cfg.n_nodes, cfg.n_neighbors,
                                              dev),
         "pres": PresState.init(cfg.pres_buckets or cfg.n_nodes, cfg.d_mem,
@@ -193,17 +190,21 @@ def init_state(cfg: MDGNNConfig, device=None) -> dict:
 
 
 def clone_state(state) -> dict:
-    """A copy of the runtime state that shares no storage with it."""
+    """A copy of the runtime state that shares no storage with it (a
+    sharded state's per-shard lists too)."""
+    def cp(x):
+        if isinstance(x, list):
+            return [t.detach().clone() for t in x]
+        return x.detach().clone()
+
     mem, pr = state["memory"], state["pres"]
     out = {
-        "memory": MemoryState(mem=mem.mem.detach().clone(),
-                              last_update=mem.last_update.detach().clone()),
-        "neighbors": {k: v.clone() for k, v in state["neighbors"].items()},
-        "pres": PresState(n=pr.n.clone(), xi=pr.xi.clone(),
-                          psi=pr.psi.clone()),
+        "memory": MemoryState(mem=cp(mem.mem), last_update=cp(mem.last_update)),
+        "neighbors": {k: cp(v) for k, v in state["neighbors"].items()},
+        "pres": PresState(n=cp(pr.n), xi=cp(pr.xi), psi=cp(pr.psi)),
     }
     if "mailbox" in state:
-        out["mailbox"] = {k: v.clone() for k, v in state["mailbox"].items()}
+        out["mailbox"] = {k: cp(v) for k, v in state["mailbox"].items()}
     return out
 
 
@@ -216,8 +217,8 @@ def compute_messages(params, cfg: MDGNNConfig, mem: MemoryState,
                      batch: EventBatch):
     """Messages for every endpoint occurrence ([srcs..., dsts...])."""
     nodes, times, other, feat, mask = batching.node_occurrences(batch)
-    s_self = mem.mem[nodes]
-    s_other = mem.mem[other]
+    s_self = mem.mem[nodes].float()
+    s_other = mem.mem[other].float()
     dt = times - mem.last_update[nodes]
     t_enc = modules.time_encode(params["time"], dt)
     msgs = modules.message(params["msg"], s_self, s_other, feat, t_enc)
@@ -245,6 +246,19 @@ def _last_occurrence_flags(nodes, times, mask):
     flags = torch.zeros(m, dtype=torch.bool, device=nodes.device)
     flags[order] = is_last & m_sorted
     return flags
+
+
+def scatter_rows(table, write_idx, values):
+    """Masked row scatter with the drop-slot trick, out of place: index N
+    (one past the end) is a dump row for masked-off writes, so the scatter
+    stays dense and waits for nothing on the host. `values` are cast to
+    the table's dtype. Returns the new (N, ...) table (autograd records
+    the write)."""
+    pad = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=table.device)
+    out = torch.cat([table, pad]).index_put(
+        (write_idx.long(),), values.to(table.dtype))
+    return out[:-1]
 
 
 def memory_inputs(params, cfg: MDGNNConfig, mem: MemoryState,
@@ -292,14 +306,14 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
     occurrences)."""
     nodes, times, msgs, mask, selected = memory_inputs(params, cfg, mem,
                                                        batch)
-    h_prev = mem.mem[nodes]
+    h_prev = mem.mem[nodes].float()
     t_prev = (mem.last_update[nodes] if cfg.pres_scale == "time"
               else None)
     new_rows = memory_cell(cfg, params["mem"], msgs, h_prev)
     keep = torch.nonzero(selected)[:, 0]
     rows = nodes.index_select(0, keep)
     if not defer_write:
-        mem.mem[rows] = new_rows.index_select(0, keep)
+        mem.mem[rows] = new_rows.index_select(0, keep).to(mem.mem.dtype)
     mem.last_update[rows] = times.index_select(0, keep)
     info = {"nodes": nodes, "selected": selected, "mask": mask,
             "s_prev": h_prev, "s_meas": new_rows, "t_prev": t_prev,
@@ -321,13 +335,13 @@ def sequential_memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
     for i in range(batch.src.shape[0]):
         pair = torch.stack([batch.src[i], batch.dst[i]])
         other = torch.stack([batch.dst[i], batch.src[i]])
-        s_self, s_other = m[pair], m[other]
+        s_self, s_other = m[pair].float(), m[other].float()
         t_enc = modules.time_encode(params["time"], batch.t[i] - lu[pair])
         msgs = modules.message(params["msg"], s_self, s_other,
                                batch.feat[i].expand(2, -1), t_enc)
         new_rows = cell(params["mem"], msgs, s_self)
         upd = batch.mask[i].to(torch.float32)
-        m[pair] = upd * new_rows + (1 - upd) * s_self
+        m[pair] = (upd * new_rows + (1 - upd) * s_self).to(m.dtype)
         lu[pair] = torch.where(batch.mask[i], batch.t[i], lu[pair])
     return MemoryState(mem=m, last_update=lu)
 

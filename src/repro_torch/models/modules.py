@@ -13,14 +13,14 @@ import torch
 class MemoryState:
     """The memory table S and its last-write times. The serving path
     updates both IN PLACE (the JAX engine donates them)."""
-    mem: torch.Tensor          # (N, D) float32
+    mem: torch.Tensor          # (N, D) float32 or bfloat16
     last_update: torch.Tensor  # (N,) float32
 
     @staticmethod
-    def init(n_nodes: int, d_mem: int, device) -> "MemoryState":
+    def init(n_nodes: int, d_mem: int, device,
+             dtype=torch.float32) -> "MemoryState":
         return MemoryState(
-            mem=torch.zeros((n_nodes, d_mem), dtype=torch.float32,
-                            device=device),
+            mem=torch.zeros((n_nodes, d_mem), dtype=dtype, device=device),
             last_update=torch.zeros((n_nodes,), dtype=torch.float32,
                                     device=device))
 

@@ -3,8 +3,8 @@
 
 Parameters are nested dicts of tensors with the JAX package's names and
 shapes. The JAX builder also keeps a tree of logical sharding axes; the
-port serves on one card and keeps none (the sharding helpers wait for
-ROADMAP Queue 1 item 18). Draws come from one `torch.Generator` on the
+port keeps none (the sharding rules and helpers are ROADMAP Queue 1
+item 21's). Draws come from one `torch.Generator` on the
 target device, so they differ from `jax.random`'s: tests carry JAX's
 parameters over with `bridge.zoo_params_from_numpy`."""
 from __future__ import annotations

@@ -105,29 +105,53 @@ class EpochObs:
     """Per-epoch telemetry accumulator shared by the lag-one, pipelined and
     scan engines.
 
-    `step(metrics)` pops the obs payload out of a step's metrics dict and
-    keeps it on the device: no host sync in the step loop. `finish()` does
-    the epoch's one fetch and returns `(route_overflow_total, obs)`, where
-    `obs` is None unless a step emitted obs vectors, else {"series":
-    {field: [floats]}, "steps": int}. A payload is (F,) from a step or
-    (T, F) from a scan macro-batch. The route-overflow total of JAX's
-    sharded engines is 0 here: the port has no sharded engine (ROADMAP
-    Queue 1 item 18), so no step reports one."""
+    `step(metrics)` pops the obs payload and the per-shard overflow
+    counts out of a step's metrics dict and keeps them, and the step's
+    route-overflow count, on the device: no host sync in the step loop.
+    `finish()` does the epoch's one fetch and returns
+    `(route_overflow_total, obs)`, where the total is 0 for an unsharded
+    run and `obs` is None unless a step emitted obs vectors or per-shard
+    counts, else {"series": {field: [floats]}, "steps": int} and, on
+    sharded runs with cfg.obs_metrics, "route_overflow_shards" (the
+    epoch's (n_shards,) totals by sending shard). A payload is (F,) /
+    () / (n_shards,) from a step or (T, F) / (T,) / (T, n_shards) from a
+    scan macro-batch."""
 
     def __init__(self):
         self._obs = []          # (F,) or (T, F) device tensors
+        self._ovf = []          # () or (T,) device overflow counts
+        self._shards = []       # (n_shards,) or (T, n_shards) device counts
 
     def step(self, metrics: dict) -> None:
+        if "route_overflow" in metrics:
+            self._ovf.append(metrics["route_overflow"])
         o = metrics.pop("obs", None)
         if o is not None:
             self._obs.append(o)
+        s = metrics.pop("route_overflow_shards", None)
+        if s is not None:
+            self._shards.append(s)
 
     def finish(self) -> tuple[int, dict | None]:
-        if not self._obs:
+        parts = self._ovf + self._obs + self._shards
+        if not parts:
             return 0, None
-        rows = np.concatenate([np.atleast_2d(x) for x in _fetch(self._obs)])
-        return 0, {"series": unpack_series(rows),
-                   "steps": int(rows.shape[0])}
+        got = _fetch(parts)
+        n_ovf, n_obs = len(self._ovf), len(self._obs)
+        ovf, obs, shards = (got[:n_ovf], got[n_ovf:n_ovf + n_obs],
+                            got[n_ovf + n_obs:])
+        total = int(sum(int(np.sum(x)) for x in ovf))
+        if not (obs or shards):
+            return total, None
+        out: dict = {}
+        if obs:
+            rows = np.concatenate([np.atleast_2d(x) for x in obs])
+            out["series"] = unpack_series(rows)
+            out["steps"] = int(rows.shape[0])
+        if shards:
+            per = sum(x.reshape(-1, x.shape[-1]).sum(axis=0) for x in shards)
+            out["route_overflow_shards"] = [int(x) for x in per]
+        return total, out
 
 
 # ---------------------------------------------------------------------------

@@ -111,6 +111,11 @@ class ServeEngine:
                  item_range: tuple[int, int] | None = None, device=None,
                  capture: bool = True):
         mdgnn.check_supported(cfg)
+        if cfg.n_shards > 1:
+            raise ValueError(
+                "serving has no sharded path (as in the JAX package): "
+                "serve the natural-layout state (routing.unshard_state, "
+                "which the train CLI checkpoints) with n_shards=1")
         self.device = resolve_device(device)
         mem = state["memory"].mem
         if mem.device != self.device:

@@ -16,7 +16,10 @@ through its plain version. Without cfg.use_kernels the step is the
 reference's plain route, which launches no kernel: the plain cell, then
 `pres.predict` and `pres.correct`, the plain attention. The pipelined
 schedule (`pipeline_depth >= 1`) is `train/pipeline.py`; it shares the
-memory stage and the state maintenance here.
+memory stage and the state maintenance here. With cfg.n_shards > 1 the
+state is sharded (`routing.shard_state`): the memory stage and the state
+maintenance run through `train/routing.py`, the embedding reads a
+natural-layout view, and the steps report the routing overflow.
 
 State updates are IN PLACE on the state dict's tensors where the JAX
 engine donates and aliases its buffers, and the state is detached after
@@ -46,6 +49,7 @@ from repro_torch.models.modules import MemoryState
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
+from repro_torch.train import routing
 from repro_torch.utils import metrics as metrics_lib
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -90,7 +94,8 @@ def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
         base = s_pred if cfg.delta_mode == "innovation" else info["s_prev"]
         delta = (fused - base) / torch.clamp(scale, min=1.0)[:, None]
     keep = info["written"]
-    mem.mem[info["nodes"].index_select(0, keep)] = fused.index_select(0, keep)
+    mem.mem[info["nodes"].index_select(0, keep)] = fused.index_select(
+        0, keep).to(mem.mem.dtype)
     return mem, fused, delta
 
 
@@ -127,7 +132,7 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     widx = torch.where(selected, nodes, torch.full_like(nodes, n))[order]
     h = None
     if torch.is_grad_enabled():
-        h = autodiff.gather_rows(mem.mem, gidx)
+        h = autodiff.gather_rows(mem.mem, gidx).float()
         info["s_prev"] = h[inv]
     table, last_t, s_meas, fused, delta = kops.memory_update_table(
         mem.mem, mem.last_update, msgs[order].contiguous(),
@@ -147,8 +152,13 @@ def memory_and_pres(params, cfg: MDGNNConfig, state, batch: EventBatch):
     `memory_update_table` pass. Otherwise the cell-based
     `mdgnn.memory_update` and, with PRES, `_apply_pres`, the cell's rows
     left unwritten; without PRES the fused rows are the measurements and
-    the deltas are zero. Returns (mem, info, fused_rows, deltas)."""
+    the deltas are zero. With cfg.n_shards > 1 the whole stage is the
+    routing protocol (`routing.sharded_memory_and_pres`: the same
+    contract, with info carrying "route_overflow"). Returns (mem, info,
+    fused_rows, deltas)."""
     mdgnn.check_supported(cfg)
+    if cfg.n_shards > 1:
+        return routing.sharded_memory_and_pres(params, cfg, state, batch)
     if cfg.use_kernels and cfg.use_pres and cfg.memory_cell == "gru":
         return _fused_memory_update(params, cfg, state, batch)
     mem2, info = mdgnn.memory_update(params, cfg, state["memory"], batch,
@@ -199,7 +209,12 @@ def maintain_state(cfg: MDGNNConfig, params, state, aux, batch: EventBatch,
     step's stop_gradient), update the PRES trackers (with PRES and
     `track_deltas`; at node % pres_buckets with hashed trackers), append
     the batch to the neighbour rings and, for APAN, its messages to the
-    mailboxes."""
+    mailboxes. With cfg.n_shards > 1 every table updates owner-locally on
+    its shard (`routing.sharded_maintain_state`)."""
+    if cfg.n_shards > 1:
+        routing.sharded_maintain_state(cfg, params, state, aux, batch,
+                                       track_deltas=track_deltas)
+        return
     state["memory"].mem.detach_()
     state["memory"].last_update.detach_()
     if track_deltas and cfg.use_pres:
@@ -257,8 +272,13 @@ def make_step_body(cfg: MDGNNConfig, opt):
             mem2, info, fused, delta = memory_and_pres(params, cfg, state,
                                                        prev_batch)
         state2 = dict(state, memory=mem2)
+        # sharded runs: the embedding reads a natural-layout view (one
+        # all-gather; its transpose reaches each shard's rows)
+        embed_state = (routing.natural_state_view(cfg, state2, pos.src.device)
+                       if cfg.n_shards > 1 else state2)
         with obs_trace.stage("embed"):
-            logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
+            logit_p, logit_n = endpoint_logits(params, cfg, embed_state, pos,
+                                               neg)
         with obs_trace.stage("loss"):
             loss = link_bce(logit_p, logit_n, pos.mask, neg.mask)
             pen = coherence.coherence_penalty(
@@ -281,6 +301,7 @@ def make_step_body(cfg: MDGNNConfig, opt):
         maintain_state(cfg, params, state2, aux, prev_batch)
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
                    "logit_p": logit_p.detach(), "logit_n": logit_n.detach()}
+        metrics.update(route_metrics(cfg, info))
         if obs is not None:
             metrics["obs"] = obs
         return params, opt_state, state2, metrics
@@ -288,11 +309,43 @@ def make_step_body(cfg: MDGNNConfig, opt):
     return train_step
 
 
+def route_metrics(cfg: MDGNNConfig, info) -> dict:
+    """A sharded step's routing overflow: "route_overflow" (budget-masked
+    valid rows, zero unless cfg.shard_budget was tightened) and, with
+    cfg.obs_metrics, the per-shard counts "route_overflow_shards"; on the
+    device, fetched once an epoch (obs/metrics.py::EpochObs)."""
+    if "route_overflow" not in info:
+        return {}
+    out = {"route_overflow": info["route_overflow"]}
+    if cfg.obs_metrics:
+        out["route_overflow_shards"] = info["route_overflow_shards"]
+    return out
+
+
 def make_train_step(cfg: MDGNNConfig, opt):
     """The lag-one train step (JAX `make_train_step`): train_step(params,
     opt_state, state, prev_batch, pos, neg) -> (params, opt_state, state,
-    metrics), the body of `make_step_body`."""
-    return make_step_body(cfg, opt)
+    metrics), the body of `make_step_body`. With cfg.n_shards > 1 the
+    step first places the event batches on the controller's device
+    (`replicating_inputs`)."""
+    return replicating_inputs(cfg, make_step_body(cfg, opt), n_carry=3)
+
+
+def replicating_inputs(cfg: MDGNNConfig, step, n_carry: int):
+    """Wrap a step so that its non-carry arguments (the host-made event
+    batches) are placed on the device of the sharded state's controller,
+    shard 0's, where the shards read them (JAX `_replicating_inputs`)."""
+    if cfg.n_shards <= 1:
+        return step
+
+    def wrapped(*args, **kw):
+        carry, rest = args[:n_carry], args[n_carry:]
+        state = next(c for c in carry if isinstance(c, dict) and "memory" in c)
+        dev = routing.mesh_of(state)[0]
+        return step(*carry, *(routing.place_batch(b, dev) for b in rest),
+                    **kw)
+
+    return wrapped
 
 
 def make_eval_step(cfg: MDGNNConfig):
@@ -305,13 +358,23 @@ def make_eval_step(cfg: MDGNNConfig):
     def eval_step(params, state, prev_batch, pos, neg):
         mem2, _, _, _ = memory_and_pres(params, cfg, state, prev_batch)
         state2 = dict(state, memory=mem2)
+        if cfg.n_shards > 1:
+            routing.sharded_neighbor_update(cfg, state2["neighbors"],
+                                            prev_batch)
+            if cfg.variant == "apan":
+                routing.sharded_apan_mailbox(params, cfg, state2, prev_batch)
+            embed_state = routing.natural_state_view(cfg, state2,
+                                                     pos.src.device)
+            logit_p, logit_n = endpoint_logits(params, cfg, embed_state, pos,
+                                               neg)
+            return state2, logit_p, logit_n
         batching.update_neighbors(state2["neighbors"], prev_batch)
         if cfg.variant == "apan":
             update_mailbox(params, cfg, state2, prev_batch)
         logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
         return state2, logit_p, logit_n
 
-    return eval_step
+    return replicating_inputs(cfg, eval_step, n_carry=2)
 
 
 @dataclasses.dataclass
@@ -321,7 +384,9 @@ class EpochResult:
     seconds: float
     # with run_epoch(collect_logits=True): the AP of each step's logits
     aps: list = dataclasses.field(default_factory=list)
-    # sharded runs' budget-masked rows in JAX; 0 in the port (no sharding)
+    # sharded runs (cfg.n_shards > 1): the epoch's budget-masked routed
+    # rows, nonzero only when cfg.shard_budget was tightened below the
+    # overflow-free default
     route_overflow: int = 0
     # cfg.obs_metrics runs: {"series": {field: [floats]}, "steps": int},
     # fetched once an epoch (obs/metrics.py::EpochObs)

@@ -19,7 +19,12 @@ staleness (obs/metrics.py). Like the lag-one step, the pipelined step
 updates the state, the snapshot,
 the parameters and the optimizer moments IN PLACE. The snapshot holds
 copies of the live table, never aliases: the memory stage writes the live
-table in place, so an alias would make the snapshot live."""
+table in place, so an alias would make the snapshot live.
+
+With cfg.n_shards > 1 the live tables are sharded (train/routing.py) and
+the snapshot stays in the natural layout on the controller: the shard
+exchange happens in the live memory stage, the embedding reads the
+snapshot, and only the refresh gathers the live sharded table."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +41,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.train import loop as loop_lib
+from repro_torch.train import routing
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -85,12 +91,15 @@ def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
                             min=0.0)
     else:
         scale = pstate.pending[:n]
+    # a bf16 snapshot is filled in fp32 and stored back in bf16, as JAX
+    read = pstate.read_mem.float()
     if not cfg.use_kernels:
-        return pres.predict(pres_state, pstate.read_mem, scale,
-                            clip=cfg.pres_clip)
-    dmean = pres.mixture_mean_rows(pres_state, n)
-    return kops.pres_predict(pstate.read_mem, dmean, scale,
-                             clip=cfg.pres_clip, mode=cfg.kernels_mode)
+        filled = pres.predict(pres_state, read, scale, clip=cfg.pres_clip)
+    else:
+        dmean = pres.mixture_mean_rows(pres_state, n)
+        filled = kops.pres_predict(read, dmean, scale, clip=cfg.pres_clip,
+                                   mode=cfg.kernels_mode)
+    return filled.to(pstate.read_mem.dtype)
 
 
 def make_pipelined_train_step(cfg: MDGNNConfig, opt):
@@ -115,6 +124,7 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
             "gradient path); set use_smoothing=True with beta > 0 (the "
             "default when use_pres=True), or train with pipeline_depth=0")
     n = cfg.n_nodes
+    sharded = cfg.n_shards > 1
 
     def train_step(params, opt_state, state, pstate, prev_batch: EventBatch,
                    pos: EventBatch, neg: EventBatch):
@@ -133,9 +143,19 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         pstate.pending.index_add_(0, keys, mask.to(torch.float32))
         # EMBEDDING stage, on the filled snapshot
         with obs_trace.stage("embed"):
-            read_tab = stale_read_table(cfg, state["pres"], pstate,
-                                        mem2.last_update)
-            embed_state = dict(state2, memory=MemoryState(
+            if sharded:
+                dev = pstate.read_mem.device
+                embed_base = routing.natural_state_view(
+                    cfg, state2, dev, components=("neighbors", "mailbox"))
+                pres_nat = routing.natural_component_view(
+                    cfg, state["pres"], "pres", dev)
+                live_lu = (routing.natural_rows(cfg, mem2.last_update, n, dev)
+                           if cfg.pres_scale == "time" else None)
+            else:
+                embed_base, pres_nat = state2, state["pres"]
+                live_lu = mem2.last_update
+            read_tab = stale_read_table(cfg, pres_nat, pstate, live_lu)
+            embed_state = dict(embed_base, memory=MemoryState(
                 mem=read_tab, last_update=pstate.read_last_update))
             logit_p, logit_n = loop_lib.endpoint_logits(
                 params, cfg, embed_state, pos, neg)
@@ -162,8 +182,11 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         loop_lib.maintain_state(cfg, params, state2, aux, prev_batch)
         # snapshot refresh, in place on the refresh step only
         if staleness >= cfg.pipeline_depth:
-            pstate.read_mem.copy_(state2["memory"].mem)
-            pstate.read_last_update.copy_(state2["memory"].last_update)
+            live = (routing.natural_memory(cfg, state2["memory"],
+                                           pstate.read_mem.device)
+                    if sharded else state2["memory"])
+            pstate.read_mem.copy_(live.mem)
+            pstate.read_last_update.copy_(live.last_update)
             pstate.pending.zero_()
             pstate.tick = 0
         else:
@@ -171,11 +194,12 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
                    "logit_p": logit_p.detach(), "logit_n": logit_n.detach(),
                    "staleness": staleness}
+        metrics.update(loop_lib.route_metrics(cfg, info))
         if obs is not None:
             metrics["obs"] = obs
         return params, opt_state, state2, pstate, metrics
 
-    return train_step
+    return loop_lib.replicating_inputs(cfg, train_step, n_carry=4)
 
 
 def make_train_step(cfg: MDGNNConfig, opt):
@@ -201,7 +225,10 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
                                   negatives=negatives,
                                   collect_logits=collect_logits)
     t0 = time.perf_counter()
-    pstate = PipelineState.init(state["memory"])
+    mem = state["memory"]
+    if cfg.n_shards > 1:    # the snapshot lives in the natural layout
+        mem = routing.natural_memory(cfg, mem)
+    pstate = PipelineState.init(mem)
     losses, pos_all, neg_all = [], [], []
     obs = obs_metrics.EpochObs()
     negs = None if negatives is None else iter(negatives)

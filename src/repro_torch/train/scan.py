@@ -35,7 +35,11 @@ caller passes back the carry it returned; another carry is captured anew.
 The other routes (Alg. 1, the rnn cell, no PRES, the plain route) call
 `torch.nonzero` in `mdgnn.memory_update` (ROADMAP P10/P20) and run their
 macro steps eagerly, as does any macro with injected negatives, on the
-CPU, and with `capture=False`. `ScanEngine.captured` says which ran.
+CPU, and with `capture=False`. A sharded state (cfg.n_shards > 1,
+train/routing.py) captures the same way when its shards share one card:
+the routing protocol waits for nothing on the host, and its fused route
+updates every shard's table in place. Shards on several cards run
+eagerly. `ScanEngine.captured` says which ran.
 
 `cfg.scan_chunk = 1` delegates to `loop.run_epoch` verbatim. `scan_chunk`
 and `pipeline_depth` are mutually exclusive (`check_schedule`)."""
@@ -55,6 +59,7 @@ from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.train import loop as loop_lib
+from repro_torch.train import routing
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 _FIELDS = ("src", "dst", "t", "feat", "mask")
@@ -77,7 +82,8 @@ def captures(cfg: MDGNNConfig) -> bool:
     """Whether the step body waits for nothing on the host, so that a
     macro step on CUDA can be captured: the memory stage is the
     `memory_update_table` kernel (PRES, the GRU cell, kernels that
-    launch). The other routes call `torch.nonzero` (P10/P20)."""
+    launch), sharded or not (a sharded state's shards on one card). The
+    other routes call `torch.nonzero` (P10/P20)."""
     return (cfg.use_kernels and cfg.use_pres and cfg.memory_cell == "gru"
             and cfg.kernels_mode != "oracle")
 
@@ -111,13 +117,14 @@ def make_macro_step(cfg: MDGNNConfig, opt, dst_range):
 
 
 def _state_leaves(state) -> list:
-    """Every tensor of a model state, in a fixed order."""
+    """Every tensor of a model state (each shard's of a sharded one), in a
+    fixed order."""
     mem, pr = state["memory"], state["pres"]
     out = [mem.mem, mem.last_update, *state["neighbors"].values(),
            pr.n, pr.xi, pr.psi]
     if "mailbox" in state:
         out += list(state["mailbox"].values())
-    return out
+    return [t for x in out for t in (x if isinstance(x, list) else [x])]
 
 
 def _carry_leaves(params, opt_state, state) -> list:
@@ -185,7 +192,7 @@ class ScanEngine:
                 self.cfg, self.opt, dst_range)
         return self._macro_steps[dst_range]
 
-    def _why_eager(self, macro: EventBatch, generator, negatives):
+    def _why_eager(self, macro: EventBatch, state, generator, negatives):
         if macro.src.device.type != "cuda":
             return "not on CUDA"
         if not self.capture:
@@ -196,6 +203,9 @@ class ScanEngine:
                     "plain route")
         if negatives is not None:
             return "negatives injected"
+        if (self.cfg.n_shards > 1
+                and len(set(routing.mesh_of(state))) > 1):
+            return "the shards are on more than one device"
         default = torch.cuda.default_generators[macro.src.device.index]
         if (generator is not default and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state")):
@@ -205,7 +215,7 @@ class ScanEngine:
 
     def _macro(self, params, opt_state, state, generator, macro, dst_range,
                negatives=None):
-        reason = self._why_eager(macro, generator, negatives)
+        reason = self._why_eager(macro, state, generator, negatives)
         if reason is not None:
             self.captured = False
             self.eager_reason = reason if macro.src.is_cuda else None

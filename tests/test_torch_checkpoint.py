@@ -301,9 +301,9 @@ def test_tgn_pres_configs_match_jax():
     tmdgnn.check_supported(ttgn_pres.CONFIG)
     # PRODUCTION names an event store, ported by the fourteenth slice
     tmdgnn.check_supported(ttgn_pres.PRODUCTION)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tmdgnn.check_supported(dataclasses.replace(ttgn_pres.PRODUCTION,
-                                                   n_shards=4))
+    # memory parallelism, ported by the fifteenth slice: accepted
+    tmdgnn.check_supported(dataclasses.replace(ttgn_pres.PRODUCTION,
+                                               n_shards=4))
 
 
 def test_cli_checkpoint_then_serve_on_cpu(tmp_path, capsys, monkeypatch):

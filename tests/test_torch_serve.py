@@ -193,16 +193,19 @@ def test_stream_chunk_byte_identical(lo, hi):
 
 def test_unsupported_config_names_roadmap_item(tiny_stream):
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
-    for change in (dict(mem_dtype="bfloat16"), dict(n_shards=2),
-                   dict(shard_budget=64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # values no slice defines: a named ValueError
+    for change in (dict(mem_dtype="float16"), dict(n_shards=0),
+                   dict(shard_budget=0)):
+        with pytest.raises(ValueError, match="mem_dtype|n_shards|budget"):
             tmdgnn.check_supported(dataclasses.replace(cfg, **change))
-    # ported by the tenth slice and (scan, the store, telemetry) the
-    # fourteenth: accepted
+    # ported by the tenth slice, (scan, the store, telemetry) the
+    # fourteenth and (memory parallelism, bf16 tables) the fifteenth:
+    # accepted
     for change in (dict(variant="jodie"), dict(pres_buckets=8),
                    dict(anchor_fraction=0.5), dict(use_kernels=False),
                    dict(scan_chunk=2), dict(event_store="x"),
-                   dict(obs_metrics=True)):
+                   dict(obs_metrics=True), dict(mem_dtype="bfloat16"),
+                   dict(n_shards=2), dict(shard_budget=64)):
         tmdgnn.check_supported(dataclasses.replace(cfg, **change))
     state = tmdgnn.init_state(cfg, "cpu")
     params = tmdgnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -226,8 +229,8 @@ def test_launch_serve_cli_on_cpu(model, capsys):
 def test_launch_serve_cli_refuses_unported_flags(tmp_path, tiny_stream,
                                                  capsys):
     """The flags of the fourteenth slice (--event-store, --trace-dir,
-    --metrics-out) now serve; the configuration left to port (memory
-    parallelism) is refused by the engine with the ROADMAP item."""
+    --metrics-out) now serve; a sharded configuration is refused by the
+    engine with a named error (serving has no sharded path, as in JAX)."""
     from repro_torch.graph import store as tstore
     from repro_torch.launch import serve as tserve
     tstore.write_stream(tevents.EventStream(
@@ -245,7 +248,7 @@ def test_launch_serve_cli_refuses_unported_flags(tmp_path, tiny_stream,
     assert (tmp_path / "tr" / "trace.json").is_file()
     assert (tmp_path / "run.jsonl").read_text().count('"kind": "serve"') == 1
     cfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg(tiny_stream)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no sharded path"):
         ServeEngine(dataclasses.replace(cfg, n_shards=2),
                     tmdgnn.init_params(cfg, torch.Generator().manual_seed(0),
                                        "cpu"),

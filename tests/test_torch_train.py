@@ -279,16 +279,18 @@ def test_launch_train_cli_on_cpu(tmp_path, capsys):
     assert "epoch 0: loss=" in printed and "val_ap=" in printed
     assert len(hist) == 1 and 0.0 <= hist[0]["val_ap"] <= 1.0
     assert out.exists()
-    # macro-batches (ported by the fourteenth slice) train; memory
-    # parallelism is still refused
+    # macro-batches (ported by the fourteenth slice) train, and so does
+    # memory parallelism (the fifteenth)
     hist = ttrain.main(["--dataset", "mooc-small", "--pres", "--use-kernels",
                         "--device", "cpu", "--d-mem", "8", "--batch-size",
                         "2000", "--epochs", "1", "--scan-chunk", "2"])
     assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
     assert "scan_chunk=2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--use-kernels", "--device", "cpu",
-                     "--n-shards", "2"])
+    hist = ttrain.main(["--dataset", "mooc-small", "--use-kernels",
+                        "--device", "cpu", "--d-mem", "8", "--batch-size",
+                        "2000", "--epochs", "1", "--n-shards", "2"])
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    assert "[dist] memory-parallel over 2 shards" in capsys.readouterr().out
     # no --use-kernels: the plain route, as the JAX CLI runs; and JODIE
     small = ["--device", "cpu", "--d-mem", "8", "--batch-size", "2000",
              "--epochs", "1"]
