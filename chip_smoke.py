@@ -169,6 +169,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain version's oracle_ms), then a dispatch resolves "compiled" from
    it. The script requires REPRO_KERNELS_MODE unset.
 
+12. train-config-shards (-pipe, -apan, -jodie, -plain, -scan),
+   train-production-shard4, train-config-bf16, train-production-bf16,
+   cli-shards: memory-parallel training, every shard on this card, and
+   bf16 memory tables.
+13. spec-mdgnn (-std, -production), spec-mdgnn-compact, -optimized,
+   -pipe, -scan: the distributed train spec (train/distributed.py) on a
+   1x1 DeviceMesh over an NCCL group of world 1 (an in-memory HashStore),
+   three steps of the spec's step through `apply_spec`, each from the
+   single-device kernel step's carry (-scan: one macro of three against
+   the eager macro step), loss, logits and memory table within STEP_TOL,
+   the memory stage's kernel once a step, DTensor's collective counts
+   logged; -production at PRODUCTION widths (b 1,000) with both steps'
+   ms. The kernel rows also time the dense memory_update on bf16 rows h
+   (a bf16 table's) on the edge phase's CONFIG and PRODUCTION inputs.
+
 Every serve, train and zoo phase names the kernels its path must launch;
 any other kernel launched fails it. The launch counters are zeroed just
 before the phase drives its path and read just after, and the memory
@@ -184,6 +199,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import logging
 import os
 import pathlib
 import subprocess
@@ -555,8 +571,9 @@ def work(name, args, kw=None):
         x, h, w, u, b = args[:5]
         m, din = x.shape
         d = h.shape[1]
-        nbytes = (m * (din + 5 * d + 1) + w.numel() + u.numel() + b.numel()
-                  + 1) * f
+        # h at its own width (2 bytes a value where a bf16 table's rows)
+        nbytes = (m * (din + 4 * d + 1) + w.numel() + u.numel() + b.numel()
+                  + 1) * f + m * d * h.element_size()
         return nbytes, {
             PEAK_TF32: 3 * m * 2 * 3 * d * (din + d), PEAK_FP32: m * 30 * d}
     raise SmokeFailure(f"no work count for kernel {name!r}")
@@ -2557,6 +2574,146 @@ def bf16_phase(label, cfg, train_s, dst_range, dev, *, batch_size,
     return counts, inputs, summary
 
 
+@contextlib.contextmanager
+def _nccl_group(dev):
+    """An NCCL process group of world 1 on `dev` over an in-memory
+    HashStore (no socket), destroyed when the block ends."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _spec_step_pair(cfg, opt, spec, mesh, carry, args, kw=None):
+    """One single-device kernel step (the lag-one or pipelined step, or
+    for cfg.scan_chunk > 1 the eager macro step) on a clone of `carry`,
+    then the spec's step applied through `apply_spec` on `carry` itself
+    (it updates its arguments in place), the launch counters zeroed just
+    before it and read just after. Returns (single outputs, the spec's
+    outputs gathered whole, the spec's launch counts, its collective
+    counts, each step's device-synced seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import distributed as tdist
+    from repro_torch.train import pipeline, scan
+    kw = kw or {}
+    if cfg.scan_chunk > 1:
+        single = scan.make_macro_step(cfg, opt, (0, cfg.n_nodes))
+    else:
+        single = pipeline.make_train_step(cfg, opt)
+    mine = _clone(*carry[:3], *carry[3:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_out = single(*mine, *args, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    with tdist.collective_log() as comm:
+        d_out = tdist.apply_spec(spec, mesh, *carry, *args, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    full = tdist.full_tree(d_out)
+    return (s_out, full, counts,
+            {str(k): v for k, v in comm.get_comm_counts().items()},
+            (t1 - t0, t2 - t1))
+
+
+def spec_phase(label, cfg, train_s, dst_range, dev, *, batch_size, expect,
+               strategy="gspmd", rules=None, steps=3, time_it=False):
+    """The distributed train spec (train/distributed.py) on a 1x1
+    DeviceMesh over an NCCL group of world 1: `steps` steps of the spec's
+    step applied through `apply_spec`, each from the SAME carry as the
+    single-device kernel step (the lag-one or pipelined step; for
+    cfg.scan_chunk > 1 one macro step of that many steps against the
+    eager macro step, the negatives injected into both), the loss, the
+    logits and the memory table within STEP_TOL; the spec's step launches
+    the path's kernels and no other, the memory stage's kernel once a
+    step; DTensor's collective counts logged. Under deterministic
+    algorithms, except with `time_it`: then the steps' device-synced ms,
+    single-device and spec, side by side."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.events import stack_batches
+    from repro_torch.graph.negatives import sample_negatives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import mdgnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import distributed as tdist
+    batches = train_s.temporal_batches(batch_size, dev)[:steps + 1]
+    gen = torch.Generator(dev).manual_seed(0)
+    negs = [sample_negatives(gen, b, *dst_range) for b in batches[1:]]
+    opt = adamw(1e-3)
+    params = mdgnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    carry = _carry(cfg, (params, opt.init(params), mdgnn.init_state(cfg,
+                                                                     dev)))
+    amax = lambda t: float(t.float().abs().max())
+    rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
+    stage = memory_stage_kernel(cfg)
+    worst = {"loss": 0.0, "logits": 0.0, "memory": 0.0}
+    total, comms, secs = {}, [], []
+    # DTensor's advice on merging the collectives of a 2-dim mesh and on
+    # detaching the tensors it wraps: the same lines every step
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    # deterministic sums (the timed phase excepted): a macro step runs its
+    # steps free, and atomic-order differences would grow through AdamW
+    det = contextlib.nullcontext() if time_it else _deterministic()
+    with _nccl_group(dev), det, warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*local_tensor.detach")
+        mesh = mesh_lib.make_debug_mesh(1, 1, device_type="cuda")
+        spec = tdist.make_mdgnn_train_spec(cfg, batch_size, mesh, rules=rules,
+                                           strategy=strategy)
+        if cfg.scan_chunk > 1:
+            calls = [((None, stack_batches(batches[:steps + 1])),
+                      {"negatives": negs[:steps]})]
+        else:
+            calls = [((batches[i], batches[i + 1], negs[i]), {})
+                     for i in range(steps)]
+        for args, kw in calls:
+            s_out, d_out, counts, comm, sec = _spec_step_pair(
+                cfg, opt, spec, mesh, carry, args, kw)
+            s_m, d_m = s_out[-1], d_out[-1]
+            s_loss = s_m["loss"]
+            got = {"loss": rel(d_m["losses"] if "losses" in d_m
+                               else d_m["loss"], s_loss, 0.0),
+                   "logits": max(rel(d_m[k], s_m[k], 1.0)
+                                 for k in ("logit_p", "logit_n")),
+                   "memory": rel(d_out[2]["memory"].mem,
+                                 s_out[2]["memory"].mem, 1.0)}
+            for k, v in got.items():
+                worst[k] = max(worst[k], v)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            comms.append(comm)
+            secs.append(sec)
+            require(np.isfinite(s_loss.detach().cpu().numpy()).all(),
+                    f"{label}: loss {s_loss}")
+            carry = s_out[:-1]
+    check_launches(label, total, expect)
+    if stage is not None:
+        require(total[stage] == steps, f"{label}: {stage} launched "
+                f"{total[stage]} times in {steps} spec steps")
+    for k, v in worst.items():
+        require(v <= STEP_TOL[k], f"{label}: the spec's step differs from "
+                f"the single-device step: {k} {v:.3g} > {STEP_TOL[k]}")
+    summary = {"strategy": strategy, "steps": steps, "batch": batch_size,
+               "vs_single_device": worst, "launches": total,
+               "collectives": comms}
+    log(f"[{label}] collectives {json.dumps(comms)}")
+    if time_it:
+        # past the first step (its first calls build DTensor's caches)
+        one = [a for a, _ in secs[1:]] or [secs[0][0]]
+        dis = [b for _, b in secs[1:]] or [secs[0][1]]
+        summary.update(single_ms=float(np.median(one)) * 1e3,
+                       spec_ms=float(np.median(dis)) * 1e3)
+    log(f"[{label}] {json.dumps(summary)}")
+    return summary
+
+
 def cli_store_phase(label, expect):
     """Both CLIs with --event-store, on wiki-small converted by the port's
     converter (one epoch; a replay of 2,000 events)."""
@@ -3430,8 +3587,9 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-production-jodie", "train-config-scan",
           "train-production-scan", "train-production-store", "cli-store",
           "cli-obs", "train-config-shards", "train-production-shard4",
-          "train-config-bf16", "train-production-bf16", "cli-shards"
-          ) + tuple(ZOO) + tuple(TRAIN_ZOO) + (
+          "train-config-bf16", "train-production-bf16", "cli-shards",
+          "spec-mdgnn", "spec-mdgnn-compact", "spec-mdgnn-optimized",
+          "spec-mdgnn-pipe", "spec-mdgnn-scan") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
               "train-zoo-reduced", "cli-zoo", "autotune")
 
 
@@ -3505,9 +3663,9 @@ def kernel_row(name, spec, phase, inputs, counts, row_name=None):
                                       kw.get("causal", True), kw.get("window"))
         row.update(source=FLASH_SOURCES[route], kernel_route=route,
                    tflops=prod / (ms * 1e-3) / 1e12, bound_share=b_ms / ms)
-    if name == "memory_update":
+    if name == "memory_update" and copies[1].dtype == torch.float32:
         # the fusion's yardstick: the gru_cell and pres_filter kernels in
-        # turn on the same inputs
+        # turn on the same inputs (fp32 rows h only)
         x, h, w, u, b, dm, scale, gamma = copies
         row["composed_ms"] = time_ms(lambda: ops.pres_filter(
             h, ops.gru_cell(x, h, w, u, b, mode="compiled"), dm, scale,
@@ -3590,10 +3748,15 @@ def main(argv=None):
         return out
 
     # 3. edge shapes
+    # the dense memory_update on a bf16 table's rows h: the edge cases,
+    # timed with the kernel rows at CONFIG and PRODUCTION widths
+    bf16h = []
     if "edge" in only:
         for name, a, kw, label in edge_cases(dev):
             err = check_kernel(name, a, kw, label)
             log(f"[edge] {name} {label}: max_abs_err={err:.3g}")
+            if name == "memory_update" and label.startswith("bf16 h"):
+                bf16h.append((label, a, kw))
         softcap_check(dev)
 
     from repro_torch.configs import tgn_pres
@@ -3614,7 +3777,8 @@ def main(argv=None):
     sspec = datasets.STREAM_SPECS["stream-small"]
     n_events = 307_200
     stream = None
-    if any(p.endswith("production") or "production-" in p for p in only):
+    if any(p.endswith("production") or "production-" in p
+           or p == "spec-mdgnn" for p in only):
         stream = datasets.stream_events(sspec, 0, n_events + 11_000)
     s_dst = (sspec.n_users, sspec.num_nodes)
     pcfg = rp(tgn_pres.PRODUCTION, n_nodes=sspec.num_nodes,
@@ -3890,6 +4054,43 @@ def main(argv=None):
             cli + ["--pres", "--n-shards", "4", "--device", "cuda:0"],
             pres_path)
 
+    # 13. the distributed train spec (train/distributed.py) on a 1x1
+    # DeviceMesh over an NCCL group of world 1, each step against the
+    # single-device kernel step from the same carry
+    def spec_run(label, c, expect, **kw):
+        train_sum[label] = timed(label, spec_phase, label, c, train_s,
+                                 wiki_dst, dev, batch_size=500,
+                                 expect=expect, **kw)
+
+    if "spec-mdgnn" in only:
+        spec_run("spec-mdgnn", cfg, pres_path)
+        spec_run("spec-mdgnn-std", rp(cfg, use_pres=False), std_path)
+        # PRODUCTION widths at b 1,000, both steps timed
+        got = train_sum["spec-mdgnn-production"] = timed(
+            "spec-mdgnn-production", spec_phase, "spec-mdgnn-production",
+            pcfg, head, s_dst, dev, batch_size=1000, expect=pres_path,
+            time_it=True)
+        log(f"[spec-mdgnn-production] {card}: ms a step single-device "
+            f"{got['single_ms']:.3f}, spec {got['spec_ms']:.3f}")
+    if "spec-mdgnn-compact" in only:
+        spec_run("spec-mdgnn-compact", cfg, pres_path,
+                 strategy="compact_update")
+    if "spec-mdgnn-optimized" in only:
+        # the JAX package's optimized bundle: every parameter and state
+        # table replicated, events over all mesh axes, hashed trackers
+        # (|V| / 16) and a bf16 table (the table kernel's bf16 entry)
+        from repro_torch.nn import module as module_lib
+        spec_run("spec-mdgnn-optimized",
+                 rp(cfg, pres_buckets=cfg.n_nodes // 16,
+                    mem_dtype="bfloat16"), pres_path, strategy="optimized",
+                 rules=dict(module_lib.RULE_SETS["mdgnn_event_dp_repl"]))
+    if "spec-mdgnn-pipe" in only:
+        spec_run("spec-mdgnn-pipe", rp(cfg, **pipe), pipe_path)
+    if "spec-mdgnn-scan" in only:
+        # one macro step of 3 (the spec's scanned step) against the eager
+        # macro step
+        spec_run("spec-mdgnn-scan", rp(cfg, scan_chunk=3), pres_path)
+
     # 9. the model zoo at full width: prefill (the zoo's kernels) and
     # decode, then the decode CLI for every ported arch
     zoo_sum = {}
@@ -3935,6 +4136,14 @@ def main(argv=None):
                          ops.REGISTRY["memory_update_table"], phase, inputs,
                          counts, row_name="memory_update_table_bf16")
         (rows if phase == "config" else more_rows).append(row)
+    for label, a, kw in bf16h:
+        if label in ("bf16 h M=1000 D=100 Din=100",
+                     "bf16 h M=2000 D=128 Din=128"):
+            more_rows.append(kernel_row(
+                "memory_update", ops.REGISTRY["memory_update"], "edge",
+                {"memory_update": (None, a, kw)},
+                {"memory_update": len(bf16h)},
+                row_name="memory_update_bf16h"))
     if only == set(PHASES):
         names = sorted(ops.REGISTRY)
         want_zoo = sorted((k, key) for label, z in ZOO.items()
@@ -3945,7 +4154,8 @@ def main(argv=None):
                 == sorted(names + ["memory_update_table_bf16"])
                 and sorted({r["name"] for r in more_rows})
                 == sorted(set(names) - set(ZOO_KERNELS)
-                          | {"memory_update_table_bf16"})
+                          | {"memory_update_table_bf16",
+                             "memory_update_bf16h"})
                 and sorted((r["name"], r["phase"]) for r in zoo_rows)
                 == want_zoo,
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")

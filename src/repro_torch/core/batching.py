@@ -16,6 +16,7 @@ import math
 import torch
 
 from repro_torch.graph.events import EventBatch
+from repro_torch.train import annotate
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -61,6 +62,9 @@ def node_occurrences(batch: EventBatch):
     times = torch.cat([batch.t, batch.t])
     feat = torch.cat([batch.feat, batch.feat], dim=0)
     mask = torch.cat([batch.mask, batch.mask])
+    # compact-update boundary (train/annotate.py)
+    nodes, times = annotate.compact(nodes), annotate.compact(times)
+    other, mask = annotate.compact(other), annotate.compact(mask)
     return nodes, times, other, feat, mask
 
 
@@ -113,6 +117,10 @@ def init_neighbors(n_nodes: int, k: int, device):
     }
 
 
+NEIGHBOR_AXES = {"nbr": ("nodes", None), "t": ("nodes", None),
+                 "ptr": ("nodes",)}
+
+
 def ring_buffer_append(buffers, ptr, nodes, values, mask) -> None:
     """Append per-occurrence rows to per-node ring buffers, IN PLACE.
 
@@ -150,15 +158,16 @@ def ring_buffer_append(buffers, ptr, nodes, values, mask) -> None:
 def update_neighbors(state, batch: EventBatch) -> None:
     """Append each event's endpoints to each other's rings, IN PLACE."""
     nodes, times, other, _, mask = node_occurrences(batch)
-    ring_buffer_append({"nbr": state["nbr"], "t": state["t"]}, state["ptr"],
-                       nodes, {"nbr": other, "t": times}, mask)
+    annotate.local(ring_buffer_append, {"nbr": state["nbr"], "t": state["t"]},
+                   state["ptr"], nodes, {"nbr": other, "t": times}, mask,
+                   writes=(0, 1))
 
 
 def gather_frontier(neighbors, nodes):
     """One-hop temporal neighbourhood of `nodes`: (nbr (M, K) int64 with -1
     for empty slots, t (M, K) float32 edge times, valid (M, K) bool)."""
-    nbr = neighbors["nbr"][nodes].long()
-    return nbr, neighbors["t"][nodes], nbr >= 0
+    nbr = annotate.events(neighbors["nbr"][nodes]).long()
+    return nbr, annotate.events(neighbors["t"][nodes]), nbr >= 0
 
 
 def compact_unique(nodes, t, budget: int):
@@ -201,7 +210,8 @@ def expand_frontiers_unique(neighbors, nodes, t_query, n_hops: int,
         nbr, t, valid = gather_frontier(neighbors, hops[-1]["nodes"])
         kk = nbr.shape[1]
         budget = min(prev_rows, n_nodes) * kk
-        hop = compact_unique(torch.clamp(nbr, min=0).reshape(-1),
+        hop = annotate.local(compact_unique,
+                             torch.clamp(nbr, min=0).reshape(-1),
                              t.reshape(-1), budget)
         hop["valid"] = valid
         hop["t_edge"] = t

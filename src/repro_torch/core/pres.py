@@ -37,6 +37,10 @@ class PresState:
         return PresState(self.n[:-1], self.xi[:-1], self.psi[:-1])
 
 
+PRES_STATE_AXES = PresState(n=("nodes", None), xi=("nodes", None, "embed"),
+                            psi=("nodes", None, "embed"))
+
+
 def gmm(n, xi, psi, eps: float = 1e-6):
     """Per-row GMM parameters from tracker rows n (.., w), xi/psi
     (.., w, D). Returns (alpha, mu, var)."""

@@ -63,6 +63,7 @@ from repro_torch.kernels import pres_filter as _pf
 from repro_torch.kernels import pres_predict as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.train import annotate
 
 MODES = ("auto", "compiled", "interpret", "oracle")
 ENV_VAR = "REPRO_KERNELS_MODE"
@@ -284,27 +285,41 @@ def reset_launch_counts() -> None:
 #   flash_attn(q, k, v, *, mode, causal=True, window=None) -> (G, S, D) in
 #       q's dtype; q (G, S, D), k and v (Gkv, T, D), G % Gkv == 0
 #   ssd_chunk(q, k, v, lcum, h0, *, mode) -> (y (G, L, P), h1 (G, N, P))
-gru_cell = autodiff.oracle_vjp(functools.partial(dispatch, "gru_cell"),
-                               ref.gru_cell_ref)
-memory_update_table = autodiff.table_vjp(
-    functools.partial(dispatch, "memory_update_table"), ref.memory_update_ref)
-embed_attn = autodiff.oracle_vjp(functools.partial(dispatch, "embed_attn"),
-                                 ref.embed_attn_ref, nondiff=(2, 4))
-pres_predict = autodiff.oracle_vjp(
-    functools.partial(dispatch, "pres_predict"), ref.pres_predict_ref)
-_neighbor_attn = autodiff.oracle_vjp(
-    functools.partial(dispatch, "neighbor_attn"), ref.neighbor_attn_ref,
-    nondiff=(3,))
+#
+# On DTensors (the distributed spec's step, train/distributed.py) each
+# wrapper runs on local tensors (`annotate.local`): a kernel called through
+# ctypes takes plain tensors. On plain tensors `_on_local` adds nothing.
+def _on_local(f, writes=()):
+    @functools.wraps(f)
+    def g(*args, **kw):
+        return annotate.local(f, *args, writes=writes, **kw)
+    return g
 
-pres_filter = autodiff.oracle_vjp(
+
+gru_cell = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "gru_cell"), ref.gru_cell_ref))
+# table and last_t (written in place) are written back to their shards
+memory_update_table = _on_local(autodiff.table_vjp(
+    functools.partial(dispatch, "memory_update_table"),
+    ref.memory_update_ref), writes=(0, 1))
+embed_attn = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "embed_attn"), ref.embed_attn_ref,
+    nondiff=(2, 4)))
+pres_predict = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "pres_predict"), ref.pres_predict_ref))
+_neighbor_attn = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "neighbor_attn"), ref.neighbor_attn_ref,
+    nondiff=(3,)))
+
+pres_filter = _on_local(autodiff.oracle_vjp(
     functools.partial(dispatch, "pres_filter"), ref.pres_filter_ref,
-    nondiff=(3,))
-memory_update = autodiff.oracle_vjp(
-    functools.partial(dispatch, "memory_update"), ref.memory_update_ref)
-flash_attn = autodiff.oracle_vjp(
-    functools.partial(dispatch, "flash_attn"), ref.flash_attn_ref)
-ssd_chunk = autodiff.oracle_vjp(
-    functools.partial(dispatch, "ssd_chunk"), ref.ssd_chunk_ref)
+    nondiff=(3,)))
+memory_update = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "memory_update"), ref.memory_update_ref))
+flash_attn = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "flash_attn"), ref.flash_attn_ref))
+ssd_chunk = _on_local(autodiff.oracle_vjp(
+    functools.partial(dispatch, "ssd_chunk"), ref.ssd_chunk_ref))
 
 
 def neighbor_attn(q, k, v, valid, **kw):
@@ -314,4 +329,5 @@ def neighbor_attn(q, k, v, valid, **kw):
 
 
 def link_score(h_src, h_items, w1, b1, w2, b2, **kw):
-    return dispatch("link_score", h_src, h_items, w1, b1, w2, b2, **kw)
+    return annotate.local(dispatch, "link_score", h_src, h_items, w1, b1,
+                          w2, b2, **kw)

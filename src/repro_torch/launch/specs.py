@@ -6,9 +6,13 @@ the >100B configs, whose Adam moments would not fit, AdamW otherwise),
 and `make_train_step` is `make_train_spec`'s `train_step` body: value and
 gradient of `model.loss_fn` (with its aux), `opt.update`, then
 `apply_updates`, the parameters and the optimizer state updated in place.
-Abstract shapes, sharding rules and the prefill / decode specs belong to
-the sharded part, which is not ported."""
+`LoweredSpec` is the bundle a sharded spec gives
+(`train/distributed.py::make_mdgnn_train_spec`); the zoo's sharded specs
+and the prefill / decode specs are not ported yet."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
@@ -21,6 +25,22 @@ ARCH_OPTIMIZER = {
     "kimi-k2-1t-a32b": "adafactor",
     "command-r-plus-104b": "adafactor",
 }
+
+
+@dataclasses.dataclass
+class LoweredSpec:
+    """A step and how its arguments and results lie on a DeviceMesh:
+    `args` are meta-device stand-ins (shapes and dtypes, no data),
+    `in_shardings` / `out_shardings` trees of DTensor placements (a tuple,
+    one per mesh dim) in the arguments' and results' layout; a placements
+    tuple where a subtree stands applies to all of its leaves.
+    `donate_argnums` names the arguments whose storage the step updates in
+    place (JAX donates them; the port's steps write them in place)."""
+    fn: Any
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate_argnums: tuple = ()
 
 
 def make_optimizer(arch_id: str, lr=1e-4):

@@ -26,6 +26,7 @@ from repro_torch.core import batching
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models import modules
+from repro_torch.train import annotate
 
 
 def neighbor_attention(q, k, v, valid, cfg):
@@ -87,7 +88,8 @@ def _tgn_layer_compact(params, layer_params, h_self, h_child, t_self, child,
             layer_params["wq"], layer_params["wk"], layer_params["wv"],
             n_heads=cfg.n_heads, mode=cfg.kernels_mode)
     else:
-        h_nbr = h_child.index_select(0, child["inverse"].reshape(-1))
+        h_nbr = annotate.events(
+            h_child.index_select(0, child["inverse"].reshape(-1)))
         t_enc = modules.time_encode(params["time"], dt)
         kv_in = torch.cat([h_nbr.reshape(rows, kk, -1), t_enc], dim=-1)
         q = h_self @ layer_params["wq"]
@@ -102,7 +104,8 @@ def _hop_rows(mem, hops):
     # accumulates duplicates one warp per index, and padded or empty slots
     # all read node 0; index_select's backward is index_add_. A bf16
     # table's rows are widened to fp32, as JAX's .astype(f32)
-    return [mem.mem.index_select(0, hop["nodes"]).float() for hop in hops]
+    return [annotate.events(mem.mem.index_select(0, hop["nodes"])).float()
+            for hop in hops]
 
 
 def _tgn_apply_dedup(params, cfg, state, nodes, t_query):
@@ -151,9 +154,10 @@ def jodie_apply(params, cfg, state, nodes, t_query):
     h = tanh(h W). The memory rows are on the gradient path, so they are
     gathered with index_select."""
     mem = state["memory"]
-    s = mem.mem.index_select(0, nodes).float()
+    s = annotate.events(mem.mem.index_select(0, nodes)).float()
     l0 = params["emb"]["l0"]
-    dt = (t_query - mem.last_update.index_select(0, nodes))[:, None]
+    dt = (t_query - annotate.events(
+        mem.last_update.index_select(0, nodes)))[:, None]
     h = torch.tanh((s * (1.0 + dt * l0["w_proj"][0])) @ l0["w_out"])
     for l in range(1, cfg.n_layers):
         h = torch.tanh(h @ params["emb"][f"l{l}"]["w"])
@@ -165,8 +169,9 @@ def apan_apply(params, cfg, state, nodes, t_query):
     (then of the previous layer's output) over its mailbox messages; every
     slot attends, empty ones included (zero messages), as in the
     reference. t_query is unused, as there."""
-    s = state["memory"].mem.index_select(0, nodes)
-    msgs = state["mailbox"]["msg"].index_select(0, nodes)   # (M, Km, d_msg)
+    s = annotate.events(state["memory"].mem.index_select(0, nodes))
+    # (M, Km, d_msg)
+    msgs = annotate.events(state["mailbox"]["msg"].index_select(0, nodes))
     valid = torch.ones(msgs.shape[:2], dtype=torch.bool, device=msgs.device)
     h = s
     for l in range(cfg.n_layers):

@@ -16,12 +16,13 @@ import math
 import torch
 
 from repro_torch.core import batching
-from repro_torch.core.pres import PresState
+from repro_torch.core.pres import PRES_STATE_AXES, PresState
 from repro_torch.device import resolve_device
 from repro_torch.graph.events import EventBatch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import embeddings, modules
 from repro_torch.models.modules import MemoryState
+from repro_torch.train import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +136,32 @@ def param_shapes(cfg: MDGNNConfig) -> dict:
     return shapes
 
 
+def param_axes(cfg: MDGNNConfig) -> dict:
+    """The logical sharding axes of every parameter, in `param_shapes`'
+    layout (JAX's `init_params` builds the same tree beside the values):
+    weights ("embed", "mlp"), biases ("mlp",); the time encoder, the
+    decoders' output layer and the PRES gate unsharded."""
+    mat, vec = ("embed", "mlp"), ("mlp",)
+    head = {"w1": mat, "b1": vec, "w2": ("mlp", None), "b2": (None,)}
+    axes = {
+        "time": {"w": (None,), "b": (None,)},
+        "msg": {"w1": mat, "b1": vec, "w2": ("mlp", "mlp"), "b2": vec},
+        "mem": {"w": mat, "u": mat, "b": vec},
+        "emb": {},
+        "dec": dict(head),
+        "node_cls": dict(head),
+        "pres": {"gamma_logit": ()},
+    }
+    if cfg.variant == "jodie":
+        axes["emb"]["l0"] = {"w_proj": (None, "embed"), "w_out": mat}
+        for l in range(1, cfg.n_layers):
+            axes["emb"][f"l{l}"] = {"w": mat}
+        return axes
+    for l in range(cfg.n_layers):
+        axes["emb"][f"l{l}"] = {"wq": mat, "wk": mat, "wv": mat, "wo": mat}
+    return axes
+
+
 def init_params(cfg: MDGNNConfig, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random parameters by the JAX package's scheme (nn/module.py): normal
@@ -189,6 +216,16 @@ def init_state(cfg: MDGNNConfig, device=None) -> dict:
     return state
 
 
+# logical sharding axes of `init_state`'s tree
+STATE_AXES = {
+    "memory": modules.MEMORY_STATE_AXES,
+    "neighbors": batching.NEIGHBOR_AXES,
+    "pres": PRES_STATE_AXES,
+    "mailbox": {"msg": ("nodes", None, "embed"), "t": ("nodes", None),
+                "ptr": ("nodes",)},
+}
+
+
 def clone_state(state) -> dict:
     """A copy of the runtime state that shares no storage with it (a
     sharded state's per-shard lists too)."""
@@ -217,9 +254,10 @@ def compute_messages(params, cfg: MDGNNConfig, mem: MemoryState,
                      batch: EventBatch):
     """Messages for every endpoint occurrence ([srcs..., dsts...])."""
     nodes, times, other, feat, mask = batching.node_occurrences(batch)
-    s_self = mem.mem[nodes].float()
-    s_other = mem.mem[other].float()
-    dt = times - mem.last_update[nodes]
+    # gathered rows pinned to the event axes (train/annotate.py)
+    s_self = annotate.events(mem.mem[nodes]).float()
+    s_other = annotate.events(mem.mem[other]).float()
+    dt = times - annotate.events(mem.last_update[nodes])
     t_enc = modules.time_encode(params["time"], dt)
     msgs = modules.message(params["msg"], s_self, s_other, feat, t_enc)
     return nodes, times, msgs, mask
@@ -272,7 +310,7 @@ def memory_inputs(params, cfg: MDGNNConfig, mem: MemoryState,
     if cfg.aggregator == "mean":
         mean_n, _ = batching.mean_per_node(nodes, msgs, mask, cfg.n_nodes)
         msgs = mean_n.index_select(0, nodes)
-    selected = _last_occurrence_flags(nodes, times, mask)
+    selected = annotate.local(_last_occurrence_flags, nodes, times, mask)
     return nodes, times, msgs, mask, selected
 
 
@@ -287,6 +325,19 @@ def memory_cell(cfg: MDGNNConfig, p, x, h):
         return kops.gru_cell(x, h, p["w"], p["u"], p["b"],
                              mode=cfg.kernels_mode)
     return modules.gru_cell(p, x, h)
+
+
+def write_rows(table, rows, values):
+    """table[rows] = values (cast to the table's dtype), IN PLACE; returns
+    the table. Autograd records the write."""
+    table[rows] = values.to(table.dtype)
+    return table
+
+
+def selected_positions(selected):
+    """The positions of the True flags (a data-dependent length: one host
+    sync on CUDA)."""
+    return torch.nonzero(selected)[:, 0]
 
 
 def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
@@ -310,11 +361,18 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
     t_prev = (mem.last_update[nodes] if cfg.pres_scale == "time"
               else None)
     new_rows = memory_cell(cfg, params["mem"], msgs, h_prev)
-    keep = torch.nonzero(selected)[:, 0]
+    # compact-update boundary (train/annotate.py): the (2b, D) rows and
+    # their bookkeeping, before the table scatter
+    new_rows = annotate.compact(new_rows)
+    times, selected = annotate.compact(times), annotate.compact(selected)
+    nodes = annotate.compact(nodes)
+    keep = annotate.local(selected_positions, selected)
     rows = nodes.index_select(0, keep)
     if not defer_write:
-        mem.mem[rows] = new_rows.index_select(0, keep).to(mem.mem.dtype)
-    mem.last_update[rows] = times.index_select(0, keep)
+        mem.mem = annotate.local(write_rows, mem.mem, rows,
+                                 new_rows.index_select(0, keep))
+    mem.last_update = annotate.local(write_rows, mem.last_update, rows,
+                                     times.index_select(0, keep))
     info = {"nodes": nodes, "selected": selected, "mask": mask,
             "s_prev": h_prev, "s_meas": new_rows, "t_prev": t_prev,
             "t_now": times, "msgs": msgs, "written": keep}
@@ -365,9 +423,10 @@ def update_mailbox(mailbox, nodes, msgs, times, mask) -> None:
     with more occurrences in the call than the mailbox holds keeps its
     last `mailbox_size` (ROADMAP Queue 3 P4); masked rows go to the dump
     row."""
-    batching.ring_buffer_append({"msg": mailbox["msg"], "t": mailbox["t"]},
-                                mailbox["ptr"], nodes,
-                                {"msg": msgs, "t": times}, mask)
+    annotate.local(batching.ring_buffer_append,
+                   {"msg": mailbox["msg"], "t": mailbox["t"]},
+                   mailbox["ptr"], nodes, {"msg": msgs, "t": times}, mask,
+                   writes=(0, 1))
 
 
 def link_logits(params, h_src, h_dst):

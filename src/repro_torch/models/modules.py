@@ -25,6 +25,11 @@ class MemoryState:
                                     device=device))
 
 
+# logical sharding axes of the state (nn/module.py's rules resolve them)
+MEMORY_STATE_AXES = MemoryState(mem=("nodes", "embed"),
+                                last_update=("nodes",))
+
+
 def time_encode(params, dt):
     """dt: (...,) -> (..., d_time) = cos(dt * w + b).
 

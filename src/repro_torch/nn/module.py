@@ -1,16 +1,23 @@
-"""Parameter construction for the model zoo (counterpart of the
-`ParamBuilder` / `stack_params` part of `repro/nn/module.py`).
+"""Parameter construction and logical-axis sharding rules (counterpart
+of `repro/nn/module.py`).
 
 Parameters are nested dicts of tensors with the JAX package's names and
-shapes. The JAX builder also keeps a tree of logical sharding axes; the
-port keeps none (the sharding rules and helpers are ROADMAP Queue 1
-item 21's). Draws come from one `torch.Generator` on the
-target device, so they differ from `jax.random`'s: tests carry JAX's
-parameters over with `bridge.zoo_params_from_numpy`."""
+shapes. Draws come from one `torch.Generator` on the target device, so
+they differ from `jax.random`'s: tests carry JAX's parameters over with
+`bridge.zoo_params_from_numpy`. The zoo's builder keeps no axes tree (the
+zoo's specs come later); the MDGNN's is `models/mdgnn.py::param_axes`.
+
+A tree of logical-axis tuples (one name or None per tensor dim) resolves
+through a rule table to mesh-axis names: `logical_to_spec` gives the
+port's `PartitionSpec`, with JAX's trimming and collision rules, and
+`tree_shardings` the DTensor placements over a `DeviceMesh` (one
+`Shard(d)` or `Replicate()` per mesh dim; a multi-axis entry shards one
+tensor dim over several mesh dims, in the entry's order)."""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Sequence
+from typing import Any, Mapping, Sequence
 
 import torch
 
@@ -79,3 +86,164 @@ def unstack(tree, i: int):
     if isinstance(tree, tuple):
         return tuple(unstack(v, i) for v in tree)
     return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Logical axis -> mesh axis resolution
+# ---------------------------------------------------------------------------
+
+# Values may be a mesh-axis name, a tuple of names, or None (replicated).
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "event": ("pod", "data"),
+    "seq": None,
+    "vocab": "model",
+    "embed": None,
+    "heads": "model",
+    "kv_heads": None,
+    "head_dim": None,
+    "mlp": "model",
+    "expert": "model",
+    "expert_mlp": None,
+    "layers": None,
+    "state": None,
+    "conv": None,
+    "nodes": ("pod", "data"),
+    "cache_seq": None,
+}
+
+# FSDP: the 'embed' dim of big weights is sharded over the data axis too.
+FSDP_RULES = dict(DEFAULT_RULES, embed="data")
+
+# Sequence-parallel decode (batch 1): the KV cache sharded over model.
+LONG_CTX_RULES = dict(DEFAULT_RULES, cache_seq="model")
+
+# MDGNN: the memory table and trackers replicated (reads local, writes
+# reduced).
+MDGNN_REPLICATED_RULES = dict(DEFAULT_RULES, nodes=None)
+
+# MDGNN: every parameter replicated (they are KB-sized) and the model axis
+# spent as further event / data parallelism.
+MDGNN_EVENT_DP_RULES = dict(
+    DEFAULT_RULES,
+    embed=None, mlp=None, vocab=None, heads=None, expert=None,
+    batch=("pod", "data", "model"),
+    event=("pod", "data", "model"),
+    nodes=("pod", "data", "model"),
+)
+
+# ... and the state tables replicated as well.
+MDGNN_EVENT_DP_REPL_RULES = dict(MDGNN_EVENT_DP_RULES, nodes=None)
+
+RULE_SETS: dict[str, dict[str, Any]] = {
+    "default": DEFAULT_RULES,
+    "fsdp": FSDP_RULES,
+    "long_ctx": LONG_CTX_RULES,
+    "mdgnn_replicated": MDGNN_REPLICATED_RULES,
+    "mdgnn_event_dp": MDGNN_EVENT_DP_RULES,
+    "mdgnn_event_dp_repl": MDGNN_EVENT_DP_REPL_RULES,
+}
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh-axis name, a tuple of names, or
+    None; trailing Nones trimmed (as `jax.sharding.PartitionSpec`)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def logical_to_spec(axes: Sequence[str | None] | None,
+                    rules: Mapping[str, Any],
+                    mesh_axis_names: Sequence[str]) -> PartitionSpec:
+    """Resolve a tuple of logical axis names to a PartitionSpec. Mesh axes
+    absent from `mesh_axis_names` are dropped; a mesh axis is used at most
+    once per spec, and a later dim that asks for it again falls back to
+    replication."""
+    if axes is None:
+        return P()
+    used: set[str] = set()
+    out = []
+    for ax in axes:
+        entry = rules.get(ax) if ax is not None else None
+        if entry is None:
+            out.append(None)
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        names = tuple(n for n in names
+                      if n in mesh_axis_names and n not in used)
+        if not names:
+            out.append(None)
+        elif len(names) == 1:
+            used.add(names[0])
+            out.append(names[0])
+        else:
+            used.update(names)
+            out.append(names)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def spec_to_placements(spec: PartitionSpec, mesh_axis_names: Sequence[str]):
+    """The DTensor placements of `spec`: one per mesh dim, `Shard(d)` where
+    tensor dim d names that mesh axis, else `Replicate()`. A dim sharded
+    over several mesh axes names them in mesh order (DTensor splits a dim
+    over its mesh dims from the first to the last, as JAX's tuple order
+    does from major to minor); another order raises ValueError."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh_axis_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        group = entry if isinstance(entry, tuple) else (entry,)
+        pos = [names.index(n) for n in group]
+        if pos != sorted(pos):
+            raise ValueError(f"{spec}: dim {d} names mesh axes {group} out "
+                             f"of the mesh's order {tuple(names)}")
+        for i in pos:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def is_axes_leaf(x) -> bool:
+    """A logical-axis tuple (names or None), the leaf of an axes tree."""
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None), tuple)) for e in x)
+
+
+def map_axes(fn, tree):
+    """fn over the leaves of an axes tree: nested dicts and dataclasses
+    (MemoryState, PresState, PipelineState, EventBatch) whose leaves are
+    logical-axis tuples."""
+    if is_axes_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_axes(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    raise TypeError(f"not an axes tree node: {tree!r}")
+
+
+def tree_specs(axes_tree, rules: Mapping[str, Any], mesh):
+    """PartitionSpecs of an axes tree on `mesh` (a DeviceMesh, or any
+    object with `mesh_dim_names`)."""
+    names = mesh.mesh_dim_names
+    return map_axes(lambda ax: logical_to_spec(ax, rules, names), axes_tree)
+
+
+def tree_shardings(axes_tree, rules: Mapping[str, Any], mesh):
+    """DTensor placements (a tuple, one per mesh dim) for every leaf of an
+    axes tree on `mesh`."""
+    names = mesh.mesh_dim_names
+    return map_axes(lambda ax: spec_to_placements(
+        logical_to_spec(ax, rules, names), names), axes_tree)

@@ -29,6 +29,9 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 class Optimizer:
     init: Callable
     update: Callable
+    # param axes tree -> the state's axes tree (AdamW's; the others' are
+    # not ported yet)
+    state_axes: Callable | None = None
 
 
 def apply_updates(params, updates):
@@ -100,7 +103,10 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
             updates = tree_map(upd, mu, nu, params)
         return updates, {"mu": mu, "nu": nu, "step": step}
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+    return Optimizer(init, update, state_axes)
 
 
 # ---------------------------------------------------------------------------

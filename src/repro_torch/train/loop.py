@@ -49,7 +49,7 @@ from repro_torch.models.modules import MemoryState
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
-from repro_torch.train import routing
+from repro_torch.train import annotate, routing
 from repro_torch.utils import metrics as metrics_lib
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -64,11 +64,16 @@ def _pres_scale_and_ids(cfg: MDGNNConfig, info):
     ids = nodes % cfg.pres_buckets if cfg.pres_buckets else nodes
     if cfg.pres_scale == "time":
         return torch.clamp(info["t_now"] - info["t_prev"], min=0.0), ids
-    keys = torch.where(mask, nodes, torch.full_like(nodes, cfg.n_nodes))
-    counts = torch.zeros(cfg.n_nodes + 1, dtype=torch.float32,
+    return annotate.local(_occurrence_counts, nodes, mask, cfg.n_nodes), ids
+
+
+def _occurrence_counts(nodes, mask, n_nodes: int):
+    """Each occurrence's node's valid-occurrence count in the batch."""
+    keys = torch.where(mask, nodes, torch.full_like(nodes, n_nodes))
+    counts = torch.zeros(n_nodes + 1, dtype=torch.float32,
                          device=nodes.device)
     counts.index_add_(0, keys, mask.to(torch.float32))
-    return counts[nodes], ids
+    return counts[nodes]
 
 
 def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
@@ -93,9 +98,11 @@ def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
         fused = pres.correct(params["pres"], s_pred, info["s_meas"])
         base = s_pred if cfg.delta_mode == "innovation" else info["s_prev"]
         delta = (fused - base) / torch.clamp(scale, min=1.0)[:, None]
+    fused = annotate.compact(fused)   # compact-update boundary
     keep = info["written"]
-    mem.mem[info["nodes"].index_select(0, keep)] = fused.index_select(
-        0, keep).to(mem.mem.dtype)
+    mem.mem = annotate.local(mdgnn.write_rows, mem.mem,
+                             info["nodes"].index_select(0, keep),
+                             fused.index_select(0, keep))
     return mem, fused, delta
 
 
@@ -116,6 +123,9 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     mem = state["memory"]
     nodes, times, msgs, mask, selected = mdgnn.memory_inputs(params, cfg,
                                                              mem, batch)
+    # compact-update boundary (train/annotate.py), as in memory_update
+    times, selected = annotate.compact(times), annotate.compact(selected)
+    nodes = annotate.compact(nodes)
     # the "time" scale's t_prev before the kernel writes last_update in place
     t_prev = mem.last_update[nodes] if cfg.pres_scale == "time" else None
     info = {"nodes": nodes, "selected": selected, "mask": mask,
@@ -124,15 +134,14 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
     dmean = pres.mixture_mean(state["pres"], pres_ids)
     gamma = torch.sigmoid(params["pres"]["gamma_logit"])
     order = mdgnn.occurrence_order(nodes, times, mask)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
+    inv = annotate.local(_inverse_permutation, order)
     n = cfg.n_nodes
     # index N = masked-write dump, N + 1 = zeros masked-read source
     gidx = torch.where(mask, nodes, torch.full_like(nodes, n + 1))[order]
     widx = torch.where(selected, nodes, torch.full_like(nodes, n))[order]
     h = None
     if torch.is_grad_enabled():
-        h = autodiff.gather_rows(mem.mem, gidx).float()
+        h = annotate.local(autodiff.gather_rows, mem.mem, gidx).float()
         info["s_prev"] = h[inv]
     table, last_t, s_meas, fused, delta = kops.memory_update_table(
         mem.mem, mem.last_update, msgs[order].contiguous(),
@@ -141,9 +150,15 @@ def _fused_memory_update(params, cfg: MDGNNConfig, state, batch: EventBatch):
         dmean[order].contiguous(), scale[order], gamma,
         clip=cfg.pres_clip, delta_mode=cfg.delta_mode, mode=cfg.kernels_mode,
         h=h)
-    info["s_meas"] = s_meas[inv]
-    return MemoryState(mem=table, last_update=last_t), info, fused[inv], \
-        delta[inv]
+    info["s_meas"] = annotate.compact(s_meas[inv])
+    return MemoryState(mem=table, last_update=last_t), info, \
+        annotate.compact(fused[inv]), delta[inv]
+
+
+def _inverse_permutation(order):
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return inv
 
 
 def memory_and_pres(params, cfg: MDGNNConfig, state, batch: EventBatch):
@@ -220,9 +235,9 @@ def maintain_state(cfg: MDGNNConfig, params, state, aux, batch: EventBatch,
     if track_deltas and cfg.use_pres:
         nodes = aux["info_nodes"]
         ids = nodes % cfg.pres_buckets if cfg.pres_buckets else nodes
-        pres.update_trackers(state["pres"], ids, aux["delta"],
-                             torch.zeros_like(nodes),
-                             aux["info_selected"] & aux["info_mask"])
+        annotate.local(pres.update_trackers, state["pres"], ids,
+                       aux["delta"], torch.zeros_like(nodes),
+                       aux["info_selected"] & aux["info_mask"], writes=(0,))
     batching.update_neighbors(state["neighbors"], batch)
     if cfg.variant == "apan":
         update_mailbox(params, cfg, state, batch)

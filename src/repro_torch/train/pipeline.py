@@ -40,6 +40,7 @@ from repro_torch.models.modules import MemoryState
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
+from repro_torch.train import annotate
 from repro_torch.train import loop as loop_lib
 from repro_torch.train import routing
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -68,6 +69,11 @@ class PipelineState:
             read_last_update=mem.last_update.detach().clone(),
             pending=torch.zeros(mem.mem.shape[0] + 1, dtype=torch.float32,
                                 device=mem.mem.device))
+
+
+PIPELINE_STATE_AXES = PipelineState(
+    read_mem=("nodes", "embed"), read_last_update=("nodes",),
+    pending=("nodes",), tick=())
 
 
 def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
@@ -100,6 +106,13 @@ def stale_read_table(cfg: MDGNNConfig, pres_state, pstate: PipelineState,
         filled = kops.pres_predict(read, dmean, scale, clip=cfg.pres_clip,
                                    mode=cfg.kernels_mode)
     return filled.to(pstate.read_mem.dtype)
+
+
+def _count_pending(pending, nodes, mask, n: int) -> None:
+    """pending[node] += 1 for every valid occurrence, IN PLACE (masked
+    ones into the dump row n)."""
+    keys = torch.where(mask, nodes, torch.full_like(nodes, n))
+    pending.index_add_(0, keys, mask.to(torch.float32))
 
 
 def make_pipelined_train_step(cfg: MDGNNConfig, opt):
@@ -138,9 +151,8 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         state2 = dict(state, memory=mem2)
         # staleness accounting: this batch's occurrences are in flight
         mask = info["mask"]
-        keys = torch.where(mask, info["nodes"], torch.full_like(
-            info["nodes"], n))
-        pstate.pending.index_add_(0, keys, mask.to(torch.float32))
+        annotate.local(_count_pending, pstate.pending, info["nodes"], mask,
+                       n, writes=(0,))
         # EMBEDDING stage, on the filled snapshot
         with obs_trace.stage("embed"):
             if sharded:

@@ -58,6 +58,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.train import annotate
 from repro_torch.train import loop as loop_lib
 from repro_torch.train import routing
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -104,7 +105,8 @@ def make_macro_step(cfg: MDGNNConfig, opt, dst_range):
         for i in range(macro.src.shape[0] - 1):
             pos = macro.at(i + 1)
             neg = (negatives[i] if negatives is not None else
-                   sample_negatives_in(generator, pos, dst_lo, dst_hi))
+                   annotate.local(sample_negatives_in, generator, pos,
+                                  dst_lo, dst_hi))
             params, opt_state, state, m = body(params, opt_state, state,
                                                macro.at(i), pos, neg)
             m["neg_dst"] = neg.dst
