@@ -183,6 +183,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    logged; -production at PRODUCTION widths (b 1,000) with both steps'
    ms. The kernel rows also time the dense memory_update on bf16 rows h
    (a bf16 table's) on the edge phase's CONFIG and PRODUCTION inputs.
+14. spec-zoo-qwen3, spec-zoo-zamba2, spec-zoo-fsdp, dryrun: the zoo's
+   sharded specs (launch/specs.py) on a 1x1 DeviceMesh over an NCCL group
+   of world 1, from the seeded weights and tokens of the single-device
+   calls they are held against (SPEC_ZOO), under deterministic
+   algorithms: qwen3-0.6b's prefill spec (B 2, S 8,192, bfloat16, 28
+   flash_attn launches on the wgmma route, through annotate.local), 16
+   decode-spec steps (logits and caches, no launch) and one train-spec
+   step (B 1, S 4,096: loss, first moments, every parameter leaf; 56
+   flash_attn launches); zamba2-1.2b's prefill spec (1,216 ssd_chunk + 6
+   flash_attn launches); the reduced gemma3's "fsdp" train spec with the
+   weight-gather hook against the same spec without it (the loss);
+   ms beside the single-device call's. dryrun: the dry-run CLI
+   (launch/dryrun.py) on this host for tgn-pres x train_4k (the
+   optimized bundle) and qwen3-0.6b x prefill_32k on the 16x16 mesh of a
+   FakeStore group (meta tensors, no device): status "ok" for both.
 
 Every serve, train and zoo phase names the kernels its path must launch;
 any other kernel launched fails it. The launch counters are zeroed just
@@ -299,6 +314,21 @@ TRAIN_ZOO_REDUCED = {
     "qwen2-7b": {"flash_attn": 4}, "kimi-k2-1t-a32b": {"flash_attn": 3},
     "qwen2-vl-2b": {"flash_attn": 4}, "qwen3-0.6b": {"flash_attn": 4},
     "whisper-tiny": {}, "zamba2-1.2b": {"ssd_chunk": 4, "flash_attn": 2}}
+# the zoo's sharded specs on a 1x1 DeviceMesh (launch/specs.py), each held
+# against the single-device call on the same seeded weights and tokens:
+# arch, batch, positions and each kernel's launches of the prefill spec
+# (the published bfloat16: flash_attn on its wgmma route; as zoo-qwen3 and
+# zoo-zamba2 launch them), and the other specs a phase drives (qwen3: 16
+# decode steps against a cache of S slots; one train step at B 1, S 4,096,
+# as train-zoo-qwen3: 28 attention layers x 2 with remat)
+SPEC_ZOO = {"spec-zoo-qwen3": ("qwen3-0.6b", 2, 8192, {"flash_attn": 28},
+                               {"decode": True,
+                                "train": (1, 4096, {"flash_attn": 56})}),
+            "spec-zoo-zamba2": ("zamba2-1.2b", 2, 8192,
+                                {"ssd_chunk": 38 * 32, "flash_attn": 6}, {})}
+# the dry run's pairs on the 16x16 mesh: arch, input shape, extra flags
+DRYRUN = (("tgn-pres", "train_4k", ["--strategy", "optimized"]),
+          ("qwen3-0.6b", "prefill_32k", []))
 # zoo training, fp32 kernel route against the plain route: the loss of
 # one step from the same parameters and batch within "loss" of its scale;
 # each gradient leaf within "grad" of its own largest |g| or of 1e-3 of
@@ -3515,6 +3545,350 @@ def cli_zoo_phase(label, arch, steps):
     return {"tokens": toks[0].tolist()}
 
 
+# ---------------------------------------------------------------------------
+# phases spec-zoo-*, dryrun: the zoo's sharded specs on a 1x1 DeviceMesh
+# and the dry run
+# ---------------------------------------------------------------------------
+
+
+def _spec_mesh():
+    """The 1x1 ("data", "model") DeviceMesh of the spec phases (inside
+    `_nccl_group`), DTensor's per-step advice silenced."""
+    from repro_torch.launch import mesh as mesh_lib
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    warnings.filterwarnings("ignore", message=".*local_tensor.detach")
+    warnings.filterwarnings("ignore", message=".*tensor.detach\\(\\) first")
+    return mesh_lib.make_debug_mesh(1, 1, device_type="cuda")
+
+
+def _synced(fn, *a, **kw):
+    """(fn's result, its device-synced ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _spec_launches(label, what, fn, expect, route):
+    """fn() with the launch counters zeroed just before it and read just
+    after: each kernel of `expect` exactly its count, flash_attn's all on
+    `route`, no other kernel. Returns (fn's result, its ms)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out, ms = _synced(fn)
+    counts = ops.launch_counts()
+    check_launches(f"{label} {what}", counts, tuple(expect))
+    require(all(counts[k] == n for k, n in expect.items()),
+            f"{label}: {what}: launches {counts}, expected {expect}")
+    fa = expect.get("flash_attn", 0)
+    check_routes(label, what, {"fma": fa if route == "fma" else 0,
+                               "wgmma": fa if route == "wgmma" else 0},
+                 tuple(expect))
+    return out, ms
+
+
+def _max_diff(a, b):
+    """max |a - b| over the tensors of two trees of one layout."""
+    la, lb = _flat(a), _flat(b)
+    require(len(la) == len(lb), "trees of different layouts")
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(la, lb))
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flat(v)]
+    return [tree]
+
+
+def spec_prefill(label, cfg, model, params, batch, mesh, expect):
+    """`make_prefill_spec` through `apply_spec` against `Model.prefill` on
+    the same weights and tokens, both under deterministic algorithms,
+    each counted at `expect` (flash_attn on the bf16 route): the logits'
+    largest difference within ZOO_TOL of their scale, both ms (each
+    after one warm-up call)."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import specs
+    from repro_torch.train import distributed as tdist
+    b, s = batch["tokens"].shape
+    spec = specs.make_prefill_spec(cfg, InputShape("p", s, b, "prefill"),
+                                   mesh)
+    with torch.no_grad(), _deterministic():
+        model.prefill(params, batch)
+        tdist.apply_spec(spec, mesh, params, batch)
+        want, single_ms = _spec_launches(
+            label, "single-device prefill",
+            lambda: model.prefill(params, batch), expect, "wgmma")
+        got, spec_ms = _spec_launches(
+            label, "prefill spec",
+            lambda: tdist.full_tree(tdist.apply_spec(spec, mesh, params,
+                                                     batch)),
+            expect, "wgmma")
+    require(tuple(got.shape) == (b, cfg.vocab)
+            and bool(torch.isfinite(got).all()),
+            f"{label}: bad prefill spec logits {tuple(got.shape)}")
+    err = _max_diff(got, want)
+    lim = ZOO_TOL * max(1.0, float(want.float().abs().max()))
+    require(err <= lim, f"{label}: the prefill spec's logits differ from "
+            f"Model.prefill's by {err:.3g} > {lim:.3g}")
+    return {"batch": b, "seq": s, "launches": expect, "max_abs_diff": err,
+            "limit": lim, "single_ms": single_ms, "spec_ms": spec_ms}, want
+
+
+def spec_decode(label, cfg, model, params, first, mesh, steps, cache):
+    """`steps` steps of `make_decode_spec` through `apply_spec` against
+    `decode_step`, each from its own zero state of `cache` slots, fed the
+    same tokens (the single-device step's greedy choice, from `first`):
+    the logits' and the final caches' largest differences within ZOO_TOL
+    of their scale, no kernel launched, median ms a step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.train import distributed as tdist
+    b = first.shape[0]
+    dev = first.device
+    spec = specs.make_decode_spec(cfg, InputShape("d", cache, b, "decode"),
+                                  mesh)
+    mine = model.init_decode_state(b, cache, dev)
+    theirs = model.init_decode_state(b, cache, dev)
+    tok, err, scale, single, dist_ms = first, 0.0, 1.0, [], []
+    with torch.no_grad(), _deterministic():
+        ops.reset_launch_counts()
+        for pos in range(steps):
+            (want, mine), ms = _synced(model.decode_step, params, mine, tok,
+                                       pos)
+            single.append(ms)
+            out, ms = _synced(tdist.apply_spec, spec, mesh, params, theirs,
+                              tok, torch.tensor(pos, dtype=torch.int32,
+                                                device=dev))
+            dist_ms.append(ms)
+            theirs = out[1]
+            got = tdist.full_tree(out[0])
+            err = max(err, _max_diff(got, want))
+            scale = max(scale, float(want.abs().max()))
+            tok = want[:, -1].argmax(-1, keepdim=True)
+        counts = ops.launch_counts()
+    require(not any(counts.values()),
+            f"{label}: decode launched a kernel: {counts}")
+    cache_err = _max_diff(tdist.full_tree(theirs), mine)
+    lim = ZOO_TOL * scale
+    require(err <= lim and cache_err <= ZOO_TOL * max(
+        1.0, max(float(t.float().abs().max()) for t in _flat(mine))),
+        f"{label}: the decode spec differs from decode_step: logits "
+        f"{err:.3g}, caches {cache_err:.3g} (limit {lim:.3g})")
+    return {"steps": steps, "cache": cache, "max_abs_diff": err,
+            "cache_max_abs_diff": cache_err, "limit": lim,
+            "single_ms_median": float(np.median(single[1:])),
+            "spec_ms_median": float(np.median(dist_ms[1:]))}
+
+
+def spec_train(label, cfg, model, params_fn, batch, mesh, expect):
+    """One step of `make_train_spec` through `apply_spec` against
+    `make_train_step` (the arch's optimizer at lr 1e-4, as the spec's),
+    each from its own copy of the seeded weights (`params_fn()`), both
+    under deterministic algorithms and counted at `expect`: the loss
+    within TRAIN_ZOO_TOL["loss"], each first-moment leaf (0.1 x the
+    gradient) within TRAIN_ZOO_TOL["grad"] of its scale (`_grad_limits`),
+    and each parameter leaf after the step within 1e-3 x lr where its
+    gradient is at least 1e-3 of the leaf's largest (AdamW's first step
+    moves an entry whose gradient is near its eps by rounding of order
+    lr) and within 2 x lr everywhere; both ms (each after one warm-up
+    step on another copy)."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import specs
+    from repro_torch.train import distributed as tdist
+    from repro_torch.utils.tree import tree_leaves
+    b, s = batch["tokens"].shape
+    spec = specs.make_train_spec(cfg, InputShape("t", s, b, "train"), mesh)
+    opt = specs.make_optimizer(cfg.arch_id, 1e-4)
+    step = specs.make_train_step(model, opt)
+    with _deterministic():
+        w = params_fn()
+        step(w, opt.init(w), batch)
+        w = params_fn()
+        tdist.apply_spec(spec, mesh, w, opt.init(w), batch)
+        del w
+        p = params_fn()
+        p_st = opt.init(p)
+        (p1, st1, loss1), single_ms = _spec_launches(
+            label, "single-device train step",
+            lambda: step(p, p_st, batch), expect, "wgmma")
+        q = params_fn()
+        q_st = opt.init(q)
+        (p2, st2, loss2), spec_ms = _spec_launches(
+            label, "train spec step",
+            lambda: tdist.full_tree(tdist.apply_spec(spec, mesh, q, q_st,
+                                                     batch)),
+            expect, "wgmma")
+    loss_err = abs(float(loss2) - float(loss1))
+    require(loss_err <= TRAIN_ZOO_TOL["loss"] * max(1.0, abs(float(loss1))),
+            f"{label}: train spec loss {float(loss2)} against "
+            f"{float(loss1)}")
+    mu1 = dict(zip(_leaf_names(st1["mu"]), tree_leaves(st1["mu"])))
+    mu2 = dict(zip(_leaf_names(st2["mu"]), tree_leaves(st2["mu"])))
+    mu_err = max(_grad_errors(mu2, mu1).values())
+    require(mu_err <= 1.0, f"{label}: the train spec's first moments "
+            f"differ by {mu_err:.3g} x TRAIN_ZOO_TOL's limits")
+    worst_big, worst = 0.0, 0.0
+    for name, a, b_ in zip(_leaf_names(p1), tree_leaves(p1),
+                           tree_leaves(p2)):
+        d = (a - b_).detach().abs()
+        g = mu1[name].abs()
+        big = g >= 1e-3 * g.max()
+        worst = max(worst, float(d.max()))
+        if bool(big.any()):
+            worst_big = max(worst_big, float(d[big].max()))
+    require(worst_big <= 1e-3 * 1e-4 and worst <= 2e-4,
+            f"{label}: parameters after the spec's step differ by "
+            f"{worst_big:.3g} (large gradients) / {worst:.3g} (all)")
+    return {"batch": b, "seq": s, "launches": expect,
+            "optimizer": specs.ARCH_OPTIMIZER.get(cfg.arch_id, "adamw"),
+            "loss": float(loss1), "loss_diff": loss_err,
+            "moments_vs_limit": mu_err, "params_max_abs_diff": worst,
+            "params_max_abs_diff_large_grad": worst_big,
+            "single_ms": single_ms, "spec_ms": spec_ms}
+
+
+def spec_zoo_phase(label, dev, seed):
+    """A zoo arch's sharded specs (launch/specs.py) at full width on a 1x1
+    DeviceMesh over an NCCL group of world 1, from the seeded weights and
+    tokens of the single-device calls they are held against (SPEC_ZOO):
+    the prefill spec (the published bfloat16, flash_attn on its wgmma
+    route through annotate.local); for qwen3 also 16 decode-spec steps
+    and one train-spec step (B 1, S 4,096)."""
+    import torch
+    from repro_torch.archs.api import get_model
+    arch, b, s, expect, parts = SPEC_ZOO[label]
+    cfg = zoo_config(arch)
+    model = get_model(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = model.init(gen, dev)
+    batch = zoo_batch(cfg, model, b, s, gen, dev)
+    summary = {"arch": arch}
+    with _nccl_group(dev):
+        mesh = _spec_mesh()
+        summary["prefill"], logits = spec_prefill(label, cfg, model, params,
+                                                  batch, mesh, expect)
+        if "decode" in parts:
+            summary["decode"] = spec_decode(
+                label, cfg, model, params,
+                logits.argmax(-1, keepdim=True), mesh, 16, s)
+        del params, logits
+        torch.cuda.empty_cache()
+        if "train" in parts:
+            tb, ts, texpect = parts["train"]
+
+            def fresh():
+                return model.init(torch.Generator(dev).manual_seed(seed),
+                                  dev)
+
+            tbatch = zoo_batch(cfg, model, tb, ts,
+                               torch.Generator(dev).manual_seed(seed + 1),
+                               dev, targets=True)
+            summary["train"] = spec_train(label, cfg, model, fresh, tbatch,
+                                          mesh, texpect)
+    torch.cuda.empty_cache()
+    log(f"[{label}] {json.dumps(summary)}")
+    return summary
+
+
+def spec_zoo_fsdp_phase(label, dev, seed):
+    """The reduced gemma3 (bfloat16, the stacked layout, attn_chunk=32:
+    its 2 layers take the blockwise branch) train spec under the "fsdp"
+    rules on a 1x1 DeviceMesh over an NCCL group of world 1, with the
+    weight-gather hook installed (gemma3 is in WEIGHT_GATHER_ARCHS) and
+    without it, from the same seeded weights and batch: the losses equal
+    within TRAIN_ZOO_TOL["loss"], each step 2 flash_attn launches (the
+    forward; the backward runs the plain version), DTensor's collectives
+    logged."""
+    import torch
+    from repro_torch.archs.api import get_model
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import specs
+    from repro_torch.train import distributed as tdist
+    cfg = get_config("gemma3-12b").reduced(attn_chunk=32, scan_layers=True,
+                                           dtype=torch.bfloat16)
+    model = get_model(cfg)
+    shape = InputShape("t", 64, 2, "train")
+    require(specs.rules_for(cfg.arch_id, shape)["embed"] == "data"
+            and cfg.arch_id in specs.WEIGHT_GATHER_ARCHS,
+            f"{label}: gemma3 is not an FSDP weight-gather arch")
+    batch = zoo_batch(cfg, model, 2, 64, torch.Generator(dev).manual_seed(
+        seed + 1), dev, targets=True)
+    out = {}
+    saved = specs.WEIGHT_GATHER_ARCHS
+    with _nccl_group(dev), _deterministic():
+        mesh = _spec_mesh()
+        for hook in (True, False):
+            specs.WEIGHT_GATHER_ARCHS = saved if hook else set()
+            try:
+                spec = specs.make_train_spec(cfg, shape, mesh)
+            finally:
+                specs.WEIGHT_GATHER_ARCHS = saved
+            p = model.init(torch.Generator(dev).manual_seed(seed), dev)
+            opt = specs.make_optimizer(cfg.arch_id, 1e-4)
+            st = opt.init(p)
+
+            def run():
+                with tdist.collective_log() as comm:
+                    res = tdist.full_tree(tdist.apply_spec(spec, mesh, p, st,
+                                                           batch))
+                return res, comm
+
+            (res, comm), ms = _spec_launches(
+                label, f"train spec {'with' if hook else 'without'} hook",
+                run, {"flash_attn": 2}, "wgmma")
+            out["hook" if hook else "no_hook"] = {
+                "loss": float(res[2]), "ms": ms,
+                "collectives": {str(k): v for k, v in
+                                comm.get_comm_counts().items()}}
+    a, b_ = out["hook"]["loss"], out["no_hook"]["loss"]
+    require(abs(a - b_) <= TRAIN_ZOO_TOL["loss"] * max(1.0, abs(b_)),
+            f"{label}: the hooked spec's loss {a} against {b_}")
+    out["loss_diff"] = abs(a - b_)
+    log(f"[{label}] {json.dumps(out)}")
+    return out
+
+
+def dryrun_phase(label):
+    """The dry-run CLI (`repro_torch.launch.dryrun.main`, in this process:
+    the spec phases before it have torn their process group down) on
+    this host for DRYRUN's pairs on the 16x16 mesh (meta tensors over a
+    FakeStore group of 256 ranks; no kernel, no device): each pair's JSON
+    has status "ok", nonzero collective bytes and a finite bottleneck
+    term."""
+    import math
+    import tempfile
+    from repro_torch.launch import dryrun
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, extra in DRYRUN:
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                         "single", "--out", tmp] + extra)
+            path = pathlib.Path(tmp) / f"{arch}__{shape}__single.json"
+            res = json.loads(path.read_text())
+            require(res["status"] == "ok",
+                    f"{label}: {arch} x {shape}: {res.get('error')!r}\n"
+                    f"{res.get('traceback', '')[-3000:]}")
+            require(res["collective_bytes_per_device"] > 0
+                    and math.isfinite(res[f"{res['bottleneck']}_s"]),
+                    f"{label}: {arch} x {shape}: {res}")
+            key = f"{arch}__{shape}"
+            out[key] = {k: v for k, v in res.items()
+                        if k != "memory_analysis"}
+            log(f"[{label}] {arch} x {shape}: {json.dumps(out[key])}")
+    return out
+
+
 def library_gru_cell(args):
     """torch.gru_cell computing the port's cell on the same inputs, as the
     kernel's yardstick (never on the path). PyTorch's z weights h, the
@@ -3590,7 +3964,8 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "train-config-bf16", "train-production-bf16", "cli-shards",
           "spec-mdgnn", "spec-mdgnn-compact", "spec-mdgnn-optimized",
           "spec-mdgnn-pipe", "spec-mdgnn-scan") + tuple(ZOO) + tuple(TRAIN_ZOO) + (
-              "train-zoo-reduced", "cli-zoo", "autotune")
+              "train-zoo-reduced",) + tuple(SPEC_ZOO) + (
+              "spec-zoo-fsdp", "dryrun", "cli-zoo", "autotune")
 
 
 def kernel_row(name, spec, phase, inputs, counts, row_name=None):
@@ -4112,6 +4487,17 @@ def main(argv=None):
         train_zoo_sum["train-zoo-reduced"] = timed(
             "train-zoo-reduced", train_zoo_reduced_phase,
             "train-zoo-reduced", dev, args.seed)
+    # 14. the zoo's sharded specs on a 1x1 DeviceMesh, and the dry run
+    for label in SPEC_ZOO:
+        if label in only:
+            train_zoo_sum[label] = timed(label, spec_zoo_phase, label, dev,
+                                         args.seed)
+    if "spec-zoo-fsdp" in only:
+        train_zoo_sum["spec-zoo-fsdp"] = timed(
+            "spec-zoo-fsdp", spec_zoo_fsdp_phase, "spec-zoo-fsdp", dev,
+            args.seed)
+    if "dryrun" in only:
+        train_zoo_sum["dryrun"] = timed("dryrun", dryrun_phase, "dryrun")
     if "cli-zoo" in only:
         from repro_torch.configs import ARCH_IDS
         for arch in ARCH_IDS:

@@ -3,6 +3,8 @@
 
 Every architecture exposes a `Model`:
     init(gen, device=None)       -> params (nested dict of tensors)
+    param_axes()                 -> the parameters' logical-axis tree
+    state_axes()                 -> the decode state's logical-axis tree
     forward(params, batch)       -> logits (B, S, V)   [training math]
     prefill(params, batch)       -> logits (B, V)      [the last position]
     loss_fn(params, batch)       -> (scalar loss, aux dict) [CE + aux]
@@ -24,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import layers
-from repro_torch.nn.module import ParamBuilder
+from repro_torch.nn.module import ParamBuilder, stack_axes
+from repro_torch.train import annotate
 from repro_torch.utils.tree import tree_map
 
 
@@ -128,7 +131,10 @@ class ModelConfig:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    init: Callable
+    # (gen, device) -> (params, axes): the parameters drawn from `gen` on
+    # `device` (a new generator seeded 0 there when None), and their
+    # logical axes; with device="meta" and no generator, meta leaves
+    build_params: Callable
     forward: Callable
     prefill: Callable
     loss_fn: Callable
@@ -136,6 +142,16 @@ class Model:
     decode_step: Callable | None = None
     extra_inputs: Callable | None = None  # shapes of aux inputs (vlm/audio)
     encode: Callable | None = None        # enc-dec only: the encoder
+    state_axes: Callable | None = None    # () -> the decode state's axes
+
+    def init(self, gen: torch.Generator | None = None, device=None):
+        """The parameters (a nested dict of tensors), drawn from `gen`."""
+        return self.build_params(gen, device)[0]
+
+    def param_axes(self):
+        """The parameters' logical-axis tree (one tuple a leaf), built on
+        the meta device: nothing is drawn or allocated."""
+        return self.build_params(None, "meta")[1]
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +166,11 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def builder(cfg: ModelConfig, gen: torch.Generator | None, device):
     """A ParamBuilder drawing from `gen` (seed 0 on the resolved device
-    when None), which must live on the resolved device."""
+    when None), which must live on the resolved device; on "meta" with
+    no generator, one that draws nothing."""
     dev = resolve_device(device)
+    if dev.type == "meta" and gen is None:
+        return ParamBuilder(None, cfg.param_dtype, dev)
     if gen is None:
         gen = torch.Generator(dev).manual_seed(0)
     if gen.device.type != dev.type:
@@ -160,36 +179,50 @@ def builder(cfg: ModelConfig, gen: torch.Generator | None, device):
     return ParamBuilder(gen, cfg.param_dtype)
 
 
-def unit_params(cfg: ModelConfig, gen: torch.Generator, n_units: int,
-                init_unit, stacked: bool) -> dict:
-    """The `blocks` tree: `n_units` unit trees drawn in turn from `gen` by
-    `init_unit(ParamBuilder)`, as {"u{i}": tree}, or (`stacked`) stacked
-    on a leading unit dim, each unit copied into the stack as it is drawn
-    so that memory holds one unit beside the stack (gemma3-12b's 47 GB of
-    float32 parameters would not fit twice on an 80 GB card). A stack of
-    one unit is a view of it (kimi-k2's one MoE unit holds 34 GB of
-    bfloat16 experts)."""
-    out, stack = {}, None
+def unit_params(b: ParamBuilder, name: str, n_units: int, init_unit,
+                stacked: bool) -> None:
+    """b's `name` subtree: `n_units` unit trees drawn in turn from b's
+    generator by `init_unit(ParamBuilder)`, as {"u{i}": tree}, or
+    (`stacked`) stacked on a leading unit dim, each unit copied into the
+    stack as it is drawn so that memory holds one unit beside the stack
+    (gemma3-12b's 47 GB of float32 parameters would not fit twice on an
+    80 GB card). A stack of one unit is a view of it (kimi-k2's one MoE
+    unit holds 34 GB of bfloat16 experts). Its axes: each unit's, or the
+    unit's with a leading "layers" entry (JAX's `stack_params`)."""
+    out, axes, stack = {}, {}, None
     for i in range(n_units):
-        ub = ParamBuilder(gen, cfg.param_dtype)
+        ub = b.fresh()
         init_unit(ub)
         if not stacked:
-            out[f"u{i}"] = ub.params
+            out[f"u{i}"], axes[f"u{i}"] = ub.params, ub.axes
             continue
+        axes = stack_axes(ub.axes)
         if n_units == 1:
-            return tree_map(lambda x: x[None], ub.params)
+            stack = tree_map(lambda x: x[None], ub.params)
+            break
         if stack is None:
             stack = tree_map(lambda x: x.new_empty((n_units,) + x.shape),
                              ub.params)
         tree_map(lambda st, x: st[i].copy_(x), stack, ub.params)
-    return stack if stacked else out
+    b.params[name] = stack if stacked and n_units else out
+    b.axes[name] = axes
+
+
+def stacked_state_axes(unit_axes, stacked: bool, n_units: int):
+    """A decode state's axes from one unit's: with a leading "layers"
+    entry on every leaf where the units' states are stacked, else one
+    copy a unit under "u{i}" (JAX's `state_axes`)."""
+    if stacked:
+        return stack_axes(unit_axes)
+    return {f"u{i}": unit_axes for i in range(n_units)}
 
 
 def make_embedding(b: ParamBuilder, cfg: ModelConfig):
     layers.embedding_init(b, "embed", padded_vocab(cfg), cfg.d_model)
     layers.rmsnorm_init(b, "final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
-        layers.linear_init(b, "lm_head", cfg.d_model, padded_vocab(cfg))
+        layers.linear_init(b, "lm_head", cfg.d_model, padded_vocab(cfg),
+                           in_axis="embed", out_axis="vocab")
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -216,9 +249,17 @@ def cross_entropy(logits, targets, mask=None):
     picked with `gather`, the same value bit for bit as JAX's one-hot
     contraction (which only keeps a vocab-sharded tensor sharded; one
     card has no such tensor, and the one-hot would be a second (B, S, V)
-    float32 tensor)."""
+    float32 tensor); on DTensor logits, that contraction."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if annotate.is_dtensor(logits):
+        # JAX's one-hot contraction: vocab-sharded logits stay sharded and
+        # one (B, S) sum is reduced (DTensor's gather over a sharded dim
+        # fails); a sum of one logit and zeros, the same value exactly
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = (targets.long()[..., None] == vocab).to(logits.dtype)
+        gold = torch.sum(logits * onehot, dim=-1)
+    else:
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         return torch.mean(nll)
@@ -274,6 +315,7 @@ def units(params_blocks, cfg: ModelConfig, n_units: int):
     unit would add a full-size zero-padded gradient per unit)."""
     if cfg.scan_layers:
         split = tree_map(lambda x: x.unbind(0), params_blocks)
-        return [tree_map(lambda parts: parts[i], split)
+        # FSDP weight-gather hook on each unit's leaves (JAX's scan body)
+        return [tree_map(lambda parts: annotate.weights(parts[i]), split)
                 for i in range(n_units)]
     return [params_blocks[f"u{i}"] for i in range(n_units)]

@@ -51,7 +51,7 @@ def build(cfg: ModelConfig) -> Model:
         raise ValueError(f"{cfg.arch_id}: {cfg.n_layers} layers do not "
                          f"divide into units {unit}")
 
-    def init(gen=None, device=None):
+    def build_params(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
 
@@ -59,9 +59,8 @@ def build(cfg: ModelConfig) -> Model:
             for j in range(len(unit)):
                 _init_block(ub.sub(f"b{j}"), cfg)
 
-        b.params["blocks"] = base.unit_params(cfg, b.gen, n_units, init_unit,
-                                              cfg.scan_layers)
-        return b.params
+        base.unit_params(b, "blocks", n_units, init_unit, cfg.scan_layers)
+        return b.params, b.axes
 
     def _unit_apply(p, x, positions, mrope_positions):
         for j, kind in enumerate(unit):
@@ -108,6 +107,10 @@ def build(cfg: ModelConfig) -> Model:
             return stack_params([unit_cache() for _ in range(n_units)])
         return {f"u{i}": unit_cache() for i in range(n_units)}
 
+    def state_axes():
+        per = {f"b{j}": dict(attn_lib.CACHE_AXES) for j in range(len(unit))}
+        return base.stacked_state_axes(per, cfg.scan_layers, n_units)
+
     def _unit_decode(p, x, cache, pos, mrope_pos):
         for j, kind in enumerate(unit):
             h = layers.rmsnorm(p[f"b{j}"]["ln_attn"], x)
@@ -150,7 +153,7 @@ def build(cfg: ModelConfig) -> Model:
                                  cfg.dtype),
                 "mrope_positions": ((batch_size, 3, s_total), torch.int32)}
 
-    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 loss_fn=base.lm_loss(forward),
+    return Model(cfg=cfg, build_params=build_params, forward=forward,
+                 prefill=prefill, loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
-                 extra_inputs=extra_inputs)
+                 extra_inputs=extra_inputs, state_axes=state_axes)

@@ -68,15 +68,14 @@ def _ffn(cfg: ModelConfig, p, h):
 def build(cfg: ModelConfig) -> Model:
     n_moe = cfg.n_layers - cfg.first_dense
 
-    def init(gen=None, device=None):
+    def build_params(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
         for i in range(cfg.first_dense):
             _init_dense_block(b.sub(f"dense_{i}"), cfg)
-        b.params["blocks"] = base.unit_params(
-            cfg, b.gen, n_moe, lambda ub: _init_moe_block(ub, cfg),
-            cfg.scan_layers)
-        return b.params
+        base.unit_params(b, "blocks", n_moe,
+                         lambda ub: _init_moe_block(ub, cfg), cfg.scan_layers)
+        return b.params, b.axes
 
     def _moe_block(p, carry, positions):
         x, aux = carry
@@ -127,6 +126,12 @@ def build(cfg: ModelConfig) -> Model:
                            {f"u{i}": c for i, c in enumerate(caches)})
         return state
 
+    def state_axes():
+        per = dict(attn_lib.CACHE_AXES)
+        st = {f"dense_{i}": per for i in range(cfg.first_dense)}
+        st["blocks"] = base.stacked_state_axes(per, cfg.scan_layers, n_moe)
+        return st
+
     def _attn_decode(p, x, cache, pos):
         h = layers.rmsnorm(p["ln_attn"], x)
         h, _ = attn_lib.decode_attention(p["attn"], h, cache, pos,
@@ -151,6 +156,7 @@ def build(cfg: ModelConfig) -> Model:
             x = x + y
         return base.lm_logits(params, cfg, x), state
 
-    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 loss_fn=loss_fn, init_decode_state=init_decode_state,
-                 decode_step=decode_step)
+    return Model(cfg=cfg, build_params=build_params, forward=forward,
+                 prefill=prefill, loss_fn=loss_fn,
+                 init_decode_state=init_decode_state, decode_step=decode_step,
+                 state_axes=state_axes)

@@ -49,17 +49,17 @@ def build(cfg: ModelConfig) -> Model:
                                 cfg.n_kv_heads, cfg.head_dim, qkv_bias=True,
                                 out_bias=True)
 
-    def init(gen=None, device=None):
+    def build_params(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
-        b.add("dec_pos", (cfg.max_seq, cfg.d_model), init="normal",
-              scale=0.02)
+        b.add("dec_pos", (cfg.max_seq, cfg.d_model), (None, "embed"),
+              init="normal", scale=0.02)
         layers.layernorm_init(b, "enc_final_norm", cfg.d_model)
-        b.params["enc"] = base.unit_params(cfg, b.gen, cfg.enc_layers,
-                                           _init_enc_block, cfg.scan_layers)
-        b.params["dec"] = base.unit_params(cfg, b.gen, cfg.n_layers,
-                                           _init_dec_block, cfg.scan_layers)
-        return b.params
+        base.unit_params(b, "enc", cfg.enc_layers, _init_enc_block,
+                         cfg.scan_layers)
+        base.unit_params(b, "dec", cfg.n_layers, _init_dec_block,
+                         cfg.scan_layers)
+        return b.params, b.axes
 
     def _enc_block(p, x):
         h = layers.layernorm(p["ln_attn"], x)
@@ -116,6 +116,12 @@ def build(cfg: ModelConfig) -> Model:
                 "self": (stack_params(caches) if cfg.scan_layers else
                          {f"u{i}": c for i, c in enumerate(caches)})}
 
+    def state_axes():
+        return {"enc_out": ("batch", None, "embed"),
+                "self": base.stacked_state_axes(dict(attn_lib.CACHE_AXES),
+                                                cfg.scan_layers,
+                                                cfg.n_layers)}
+
     def decode_step(params, state, tokens, pos):
         """tokens (B, 1) at position `pos`; the caches in `state` are
         written in place. Returns (logits (B, 1, V), state). Raises
@@ -149,7 +155,8 @@ def build(cfg: ModelConfig) -> Model:
         return {"audio_feats": ((batch_size, cfg.enc_frames, cfg.d_model),
                                 cfg.dtype)}
 
-    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 loss_fn=base.lm_loss(forward),
+    return Model(cfg=cfg, build_params=build_params, forward=forward,
+                 prefill=prefill, loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
-                 extra_inputs=extra_inputs, encode=encode)
+                 extra_inputs=extra_inputs, encode=encode,
+                 state_axes=state_axes)

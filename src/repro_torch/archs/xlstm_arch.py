@@ -23,7 +23,7 @@ def build(cfg: ModelConfig) -> Model:
         raise ValueError(f"{cfg.arch_id}: {cfg.n_layers} layers do not "
                          f"divide into units {unit}")
 
-    def init(gen=None, device=None):
+    def build_params(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
 
@@ -37,9 +37,8 @@ def build(cfg: ModelConfig) -> Model:
                     xlstm.slstm_init(blk, "cell", cfg.d_model,
                                      cfg.n_kv_heads)
 
-        b.params["blocks"] = base.unit_params(cfg, b.gen, n_units, init_unit,
-                                              cfg.scan_layers)
-        return b.params
+        base.unit_params(b, "blocks", n_units, init_unit, cfg.scan_layers)
+        return b.params, b.axes
 
     def _unit_apply(p, x):
         for j, kind in enumerate(unit):
@@ -80,6 +79,17 @@ def build(cfg: ModelConfig) -> Model:
             return stack_params(states)
         return {f"u{i}": s for i, s in enumerate(states)}
 
+    def state_axes():
+        st = {f"b{j}": (xlstm.MLSTM_STATE_AXES if kind == "mlstm"
+                        else xlstm.SLSTM_STATE_AXES)
+              for j, kind in enumerate(unit)}
+        if not cfg.scan_layers:
+            return {f"u{i}": st for i in range(n_units)}
+        # "layers" before each tensor's axes: the sLSTM triple's three
+        return {k: tuple(("layers", *a) for a in ax)
+                if kind == "slstm" else ("layers", *ax)
+                for (k, ax), kind in zip(st.items(), unit)}
+
     def _unit_decode(p, x, st):
         new = {}
         for j, kind in enumerate(unit):
@@ -108,6 +118,7 @@ def build(cfg: ModelConfig) -> Model:
                      else {f"u{i}": s for i, s in enumerate(news)})
         return base.lm_logits(params, cfg, x), new_state
 
-    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 loss_fn=base.lm_loss(forward),
-                 init_decode_state=init_decode_state, decode_step=decode_step)
+    return Model(cfg=cfg, build_params=build_params, forward=forward,
+                 prefill=prefill, loss_fn=base.lm_loss(forward),
+                 init_decode_state=init_decode_state, decode_step=decode_step,
+                 state_axes=state_axes)

@@ -32,7 +32,7 @@ def build(cfg: ModelConfig) -> Model:
         ssm.mamba2_init(blk, "cell", cfg.d_model, cfg.ssm_state,
                         expand=cfg.mamba_expand, head_dim=cfg.ssm_head_dim)
 
-    def init(gen=None, device=None):
+    def build_params(gen=None, device=None):
         b = base.builder(cfg, gen, device)
         base.make_embedding(b, cfg)
         # the shared block: one copy, applied after every unit
@@ -47,11 +47,10 @@ def build(cfg: ModelConfig) -> Model:
             for j in range(every):
                 _init_mamba(ub, f"m{j}")
 
-        b.params["blocks"] = base.unit_params(cfg, b.gen, n_units, init_unit,
-                                              stacked)
+        base.unit_params(b, "blocks", n_units, init_unit, stacked)
         for j in range(tail):
             _init_mamba(b, f"tail_{j}")
-        return b.params
+        return b.params, b.axes
 
     def _mamba_apply(blk, x):
         h = layers.rmsnorm(blk["ln"], x)
@@ -121,6 +120,14 @@ def build(cfg: ModelConfig) -> Model:
         state.update({f"tail_{j}": mamba_state() for j in range(tail)})
         return state
 
+    def state_axes():
+        m_ax = dict(ssm.MAMBA_STATE_AXES)
+        unit_ax = {f"m{j}": m_ax for j in range(every)}
+        unit_ax["cache"] = dict(attn_lib.CACHE_AXES)
+        ax = {"units": base.stacked_state_axes(unit_ax, stacked, n_units)}
+        ax.update({f"tail_{j}": m_ax for j in range(tail)})
+        return ax
+
     def _mamba_decode(blk, x, st):
         """x plus the block's output; the block's state in `st` is
         overwritten with the new one."""
@@ -156,6 +163,7 @@ def build(cfg: ModelConfig) -> Model:
             x = _mamba_decode(params[f"tail_{j}"], x, state[f"tail_{j}"])
         return base.lm_logits(params, cfg, x), state
 
-    return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 loss_fn=base.lm_loss(forward),
-                 init_decode_state=init_decode_state, decode_step=decode_step)
+    return Model(cfg=cfg, build_params=build_params, forward=forward,
+                 prefill=prefill, loss_fn=base.lm_loss(forward),
+                 init_decode_state=init_decode_state, decode_step=decode_step,
+                 state_axes=state_axes)

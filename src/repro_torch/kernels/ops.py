@@ -289,6 +289,8 @@ def reset_launch_counts() -> None:
 # On DTensors (the distributed spec's step, train/distributed.py) each
 # wrapper runs on local tensors (`annotate.local`): a kernel called through
 # ctypes takes plain tensors. On plain tensors `_on_local` adds nothing.
+# (The zoo's callers, nn/attention.py and nn/ssm.py, enter `local` first,
+# with their batch and head shards.)
 def _on_local(f, writes=()):
     @functools.wraps(f)
     def g(*args, **kw):

@@ -151,7 +151,8 @@ def flash_attn_ref(q, k, v, causal=True, window=None):
     scaled by 1/sqrt(D) after the product, masked (k_pos <= q_pos when
     causal, k_pos > q_pos - window when windowed) to -1e30; output in
     q's dtype. Query groups go a slice at a time when their scores would
-    exceed REF_SCORE_BYTES."""
+    exceed REF_SCORE_BYTES (meta tensors, which hold no memory, in one
+    slice)."""
     d = q.shape[-1]
     g, s, t = q.shape[0], q.shape[1], k.shape[1]
     n_rep = g // k.shape[0]
@@ -165,7 +166,8 @@ def flash_attn_ref(q, k, v, causal=True, window=None):
         valid &= k_pos <= q_pos
     if window is not None:
         valid &= k_pos > q_pos - window
-    step = max(1, REF_SCORE_BYTES // (4 * s * t))
+    step = (g if q.device.type == "meta"
+            else max(1, REF_SCORE_BYTES // (4 * s * t)))
     outs = []
     for g0 in range(0, g, step):
         sl = slice(g0, g0 + step)

@@ -8,7 +8,8 @@ up (`torch.distributed.init_process_group` with its own store, world size
 and rank); its world size must be the mesh's size. Functions, so that
 importing this module touches no process group.
 
-The roofline constants are an H100 SXM's, from NVIDIA's data sheet."""
+The roofline constants are an H100 SXM's and its node's, from NVIDIA's
+data sheets."""
 from __future__ import annotations
 
 import math
@@ -53,7 +54,13 @@ def make_debug_mesh(data: int = 2, model: int = 2, pod: int | None = None,
     return _mesh((data, model), PRODUCTION_AXES, device_type)
 
 
-# H100 SXM roofline denominators, per card
+# H100 SXM roofline denominators, per card, from data sheets (estimates
+# for the dry run's terms, not measurements)
 PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12                # HBM3 bytes/s
 NVLINK_BW = 900e9               # NVLink bytes/s (all links of one card)
+# cards one NVLink domain joins: an HGX / DGX H100 node of 8
+NODE_SIZE = 8
+# between nodes: one ConnectX-7 NDR InfiniBand port of 400 Gb/s a card
+# (NVIDIA DGX H100 data sheet: 8 such ports for 8 cards)
+INTER_NODE_BW = 50e9

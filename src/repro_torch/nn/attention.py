@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import rmsnorm, rmsnorm_init
 from repro_torch.nn.module import ParamBuilder
+from repro_torch.train import annotate
 
 NEG_INF = -1e30
 
@@ -76,35 +77,35 @@ def attention_init(b: ParamBuilder, name: str, d_model: int, n_heads: int,
                    n_kv_heads: int, d_head: int, qkv_bias: bool = False,
                    qk_norm: bool = False, out_bias: bool = False):
     sub = b.sub(name)
-    sub.add("wq", (d_model, n_heads * d_head))
-    sub.add("wk", (d_model, n_kv_heads * d_head))
-    sub.add("wv", (d_model, n_kv_heads * d_head))
-    sub.add("wo", (n_heads * d_head, d_model))
+    sub.add("wq", (d_model, n_heads * d_head), ("embed", "heads"))
+    sub.add("wk", (d_model, n_kv_heads * d_head), ("embed", "heads"))
+    sub.add("wv", (d_model, n_kv_heads * d_head), ("embed", "heads"))
+    sub.add("wo", (n_heads * d_head, d_model), ("heads", "embed"))
     if qkv_bias:
-        sub.add("bq", (n_heads * d_head,), init="zeros")
-        sub.add("bk", (n_kv_heads * d_head,), init="zeros")
-        sub.add("bv", (n_kv_heads * d_head,), init="zeros")
+        sub.add("bq", (n_heads * d_head,), ("heads",), init="zeros")
+        sub.add("bk", (n_kv_heads * d_head,), ("heads",), init="zeros")
+        sub.add("bv", (n_kv_heads * d_head,), ("heads",), init="zeros")
     if out_bias:
-        sub.add("bo", (d_model,), init="zeros")
+        sub.add("bo", (d_model,), ("embed",), init="zeros")
     if qk_norm:
-        rmsnorm_init(sub, "q_norm", d_head)
-        rmsnorm_init(sub, "k_norm", d_head)
+        rmsnorm_init(sub, "q_norm", d_head, axis="head_dim")
+        rmsnorm_init(sub, "k_norm", d_head, axis="head_dim")
 
 
 def _project_qkv(params, xq, xkv, d_head: int):
     dt = xq.dtype
     b_, s, _ = xq.shape
     t = xkv.shape[1]
-    q = xq @ params["wq"].to(dt)
-    k = xkv @ params["wk"].to(dt)
-    v = xkv @ params["wv"].to(dt)
+    q = xq @ annotate.weights(params["wq"].to(dt))
+    k = xkv @ annotate.weights(params["wk"].to(dt))
+    v = xkv @ annotate.weights(params["wv"].to(dt))
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(b_, s, -1, d_head)
-    k = k.reshape(b_, t, -1, d_head)
-    v = v.reshape(b_, t, -1, d_head)
+    q = annotate.split_dim(q, -1, (q.shape[-1] // d_head, d_head))
+    k = annotate.split_dim(k, -1, (k.shape[-1] // d_head, d_head))
+    v = annotate.split_dim(v, -1, (v.shape[-1] // d_head, d_head))
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -113,7 +114,7 @@ def _project_qkv(params, xq, xkv, d_head: int):
 
 def _out_proj(params, out, dtype):
     b_, s = out.shape[:2]
-    y = out.reshape(b_, s, -1) @ params["wo"].to(dtype)
+    y = out.reshape(b_, s, -1) @ annotate.weights(params["wo"].to(dtype))
     if "bo" in params:
         y = y + params["bo"].to(dtype)
     return y
@@ -133,6 +134,32 @@ def _gqa_out(probs, v, dtype):
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     b_, s, kv, g, d = out.shape
     return out.reshape(b_, s, kv * g, d).to(dtype)
+
+
+def _dense_attention(q, k, v, dtype, *, cap=None, mask=None, bmask=None):
+    """Dense GQA attention in float32: q (B, S, H, D), k / v (B, T, KV,
+    D) -> (B, S, H, D) in `dtype`; scores (B, KV, G, S, T) tanh-capped by
+    `cap`, masked where the plain bool `mask` (its trailing dims
+    broadcast) or the per-batch `bmask` (leading dim B, broadcast) is
+    False. On DTensors it runs on each rank's batch
+    and head shards (`annotate.local`; the card's torch cannot flatten
+    the GQA groups of sharded dims), or replicated with a `bmask`."""
+    def core(q, k, v, bmask=None):
+        scores = _gqa_scores(q, k)
+        if cap is not None:  # logit soft-capping (gemma-style)
+            scores = torch.tanh(scores / cap) * cap
+        neg = torch.full((), NEG_INF, device=q.device)
+        if mask is not None:
+            scores = torch.where(mask, scores, neg)
+        if bmask is not None:
+            scores = torch.where(bmask, scores, neg)
+        probs = torch.softmax(scores, dim=-1)
+        return _gqa_out(probs, v, dtype)
+
+    if bmask is not None:
+        return annotate.local(core, q, k, v, bmask)
+    return annotate.local(core, q, k, v, placements=annotate.group_placements(
+        (q, k, v), (0, 2)))
 
 
 def causal_mask(s: int, t: int, offset: int = 0, window: int | None = None,
@@ -166,13 +193,21 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None,
         return _capped_blockwise(q, k, v, causal=causal, window=window,
                                  cap=softmax_scale_cap, q_chunk=q_chunk,
                                  kv_chunk=kv_chunk)
-    b_, s, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    qf = q.transpose(1, 2).reshape(b_ * h, s, d).contiguous()
-    kf = k.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
-    vf = v.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
-    out = ops.flash_attn(qf, kf, vf, mode=mode, causal=causal, window=window)
-    return out.reshape(b_, h, s, d).transpose(1, 2).to(q.dtype)
+    def heads_first(q, k, v):
+        b_, s, h, d = q.shape
+        t, kv = k.shape[1], k.shape[2]
+        qf = q.transpose(1, 2).reshape(b_ * h, s, d).contiguous()
+        kf = k.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
+        vf = v.transpose(1, 2).reshape(b_ * kv, t, d).contiguous()
+        out = ops.flash_attn(qf, kf, vf, mode=mode, causal=causal,
+                             window=window)
+        return out.reshape(b_, h, s, d).transpose(1, 2).to(q.dtype)
+
+    # on DTensors, on each rank's batch and head shards (the layout
+    # changes above do not shard), replicated where a dim does not divide
+    return annotate.local(heads_first, q, k, v,
+                          placements=annotate.group_placements((q, k, v),
+                                                               (0, 2)))
 
 
 def _capped_blockwise(q, k, v, *, causal: bool, window: int | None,
@@ -254,17 +289,11 @@ def attention(params, x, positions, *, d_head: int, causal: bool = True,
                                   mode=mode, q_chunk=chunk,
                                   kv_chunk=max(chunk // 2, 128))
         return _out_proj(params, out, x.dtype)
-    scores = _gqa_scores(q, k)
-    if softmax_scale_cap is not None:  # logit soft-capping (gemma-style)
-        scores = torch.tanh(scores / softmax_scale_cap) * softmax_scale_cap
-    neg = torch.full((), NEG_INF, device=x.device)
-    if causal:
-        mask = causal_mask(s, s, window=window, device=x.device)
-        scores = torch.where(mask[None, None, None], scores, neg)
-    if attn_mask is not None:
-        scores = torch.where(attn_mask[:, None, None], scores, neg)
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v, x.dtype)
+    mask = (causal_mask(s, s, window=window, device=x.device)
+            if causal else None)
+    out = _dense_attention(
+        q, k, v, x.dtype, cap=softmax_scale_cap, mask=mask,
+        bmask=None if attn_mask is None else attn_mask[:, None, None])
     return _out_proj(params, out, x.dtype)
 
 
@@ -273,18 +302,22 @@ def cross_attention(params, x, kv_src, *, d_head: int, src_mask=None):
     and values from kv_src (B, T, d); src_mask (B, T) bool masks source
     positions. Dense scores in float32, no RoPE."""
     q, k, v = _project_qkv(params, x, kv_src, d_head)
-    scores = _gqa_scores(q, k)
-    if src_mask is not None:
-        scores = torch.where(src_mask[:, None, None, None, :], scores,
-                             torch.full((), NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v, x.dtype)
+    out = _dense_attention(
+        q, k, v, x.dtype,
+        bmask=None if src_mask is None else src_mask[:, None, None, None, :])
     return _out_proj(params, out, x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # KV cache — decode path
 # ---------------------------------------------------------------------------
+
+
+# the logical axes of a KV cache's leaves (init_cache's)
+CACHE_AXES = {
+    "k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "cache_seq", "kv_heads", "head_dim"),
+}
 
 
 def init_cache(batch: int, cache_len: int, n_kv: int, d_head: int,
@@ -327,11 +360,9 @@ def decode_attention(params, x, cache, pos: int, *, d_head: int,
         k = apply_rope(k, posv, rope_theta)
     ck, cv = cache["k"], cache["v"]
     slot = pos % cache_len if window is not None else pos
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-    scores = _gqa_scores(q, ck)                       # (B, KV, G, 1, T)
-    if softmax_scale_cap is not None:
-        scores = torch.tanh(scores / softmax_scale_cap) * softmax_scale_cap
+    # on a DTensor cache, only the shard that holds the slot writes
+    annotate.write_index(ck, 1, slot, k[:, 0].to(ck.dtype))
+    annotate.write_index(cv, 1, slot, v[:, 0].to(cv.dtype))
     kpos = torch.arange(cache_len, device=x.device)
     if window is not None:
         # ring buffer: slot j holds absolute position pos - ((slot - j) mod L)
@@ -339,8 +370,6 @@ def decode_attention(params, x, cache, pos: int, *, d_head: int,
         valid = (abs_pos >= max(0, pos - window + 1)) & (abs_pos <= pos)
     else:
         valid = kpos <= pos
-    scores = torch.where(valid[None, None, None, None, :], scores,
-                         torch.full((), NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, cv, x.dtype)
+    out = _dense_attention(q, ck, cv, x.dtype, cap=softmax_scale_cap,
+                           mask=valid)
     return _out_proj(params, out, x.dtype), cache

@@ -4,8 +4,12 @@ of `repro/nn/module.py`).
 Parameters are nested dicts of tensors with the JAX package's names and
 shapes. Draws come from one `torch.Generator` on the target device, so
 they differ from `jax.random`'s: tests carry JAX's parameters over with
-`bridge.zoo_params_from_numpy`. The zoo's builder keeps no axes tree (the
-zoo's specs come later); the MDGNN's is `models/mdgnn.py::param_axes`.
+`bridge.zoo_params_from_numpy`. The builder keeps a tree of logical axes
+beside the parameters (one tuple a leaf, one name or None a dim), as
+JAX's does; a builder with no generator on the meta device makes
+`torch.empty` meta leaves, so a config's shapes and axes come without
+memory (kimi-k2's 1 T parameters). The MDGNN's axes are
+`models/mdgnn.py::param_axes`.
 
 A tree of logical-axis tuples (one name or None per tensor dim) resolves
 through a rule table to mesh-axis names: `logical_to_spec` gives the
@@ -23,35 +27,53 @@ import torch
 
 
 class ParamBuilder:
-    """Accumulates a parameter tree under hierarchical names; every child
-    draws from the same generator, on the generator's device."""
+    """Accumulates (params, axes) trees under hierarchical names; every
+    child draws from the same generator, on the generator's device. With
+    `gen` None the builder draws nothing: it needs device="meta" and
+    makes empty meta leaves."""
 
-    def __init__(self, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, gen: torch.Generator | None, dtype=torch.float32,
+                 device=None):
+        if gen is None and torch.device(device or "cpu").type != "meta":
+            raise ValueError("a ParamBuilder without a generator builds on "
+                             "device='meta' only")
         self.gen = gen
         self.dtype = dtype
+        self.device = gen.device if gen is not None else torch.device("meta")
         self.params: dict = {}
+        self.axes: dict = {}
 
-    @property
-    def device(self) -> torch.device:
-        return self.gen.device
+    def fresh(self) -> "ParamBuilder":
+        """An empty builder drawing from the same generator."""
+        return ParamBuilder(self.gen, self.dtype, self.device)
 
     def sub(self, name: str) -> "ParamBuilder":
-        child = ParamBuilder(self.gen, self.dtype)
+        child = self.fresh()
         self.params[name] = child.params
+        self.axes[name] = child.axes
         return child
 
-    def add(self, name: str, shape: Sequence[int], init: str = "normal",
+    def add(self, name: str, shape: Sequence[int],
+            axes: Sequence[str | None], init: str = "normal",
             scale: float | None = None, dtype=None) -> None:
         """zeros, ones, "normal" (std 1/sqrt(fan-in), fan-in the product of
         all dims but the last, or the one dim of a vector) or "embed"
-        (std 1), scaled by `scale` where given, as `repro/nn/module.py`."""
+        (std 1), scaled by `scale` where given, as `repro/nn/module.py`;
+        `axes` names the logical axis of each dim."""
         dtype = dtype or self.dtype
         shape = tuple(shape)
-        if init == "zeros":
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: {len(axes)} axes {tuple(axes)} for "
+                             f"shape {shape}")
+        if init not in ("zeros", "ones", "normal", "embed"):
+            raise ValueError(f"unknown init {init!r}")
+        if self.gen is None:
+            value = torch.empty(shape, dtype=dtype, device="meta")
+        elif init == "zeros":
             value = torch.zeros(shape, dtype=dtype, device=self.device)
         elif init == "ones":
             value = torch.ones(shape, dtype=dtype, device=self.device)
-        elif init in ("normal", "embed"):
+        else:
             if init == "normal":
                 fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
                 std = scale if scale is not None else 1.0 / math.sqrt(
@@ -62,9 +84,8 @@ class ParamBuilder:
             # (kimi-k2's (384, 7168, 2048) experts are 22.5 GB so)
             value = torch.randn(shape, generator=self.gen,
                                 device=self.device).mul_(std).to(dtype)
-        else:
-            raise ValueError(f"unknown init {init!r}")
         self.params[name] = value
+        self.axes[name] = tuple(axes)
 
 
 def stack_params(trees: Sequence[dict]) -> dict:
@@ -77,6 +98,12 @@ def stack_params(trees: Sequence[dict]) -> dict:
         return tuple(stack_params([t[m] for t in trees])
                      for m in range(len(first)))
     return torch.stack(list(trees), 0)
+
+
+def stack_axes(axes_tree):
+    """The axes of a stacked tree: "layers" before every leaf's axes
+    (JAX's `stack_params` gives them beside the stacked parameters)."""
+    return map_axes(lambda ax: ("layers", *ax), axes_tree)
 
 
 def unstack(tree, i: int):
@@ -241,9 +268,14 @@ def tree_specs(axes_tree, rules: Mapping[str, Any], mesh):
     return map_axes(lambda ax: logical_to_spec(ax, rules, names), axes_tree)
 
 
+def axes_placements(axes, rules: Mapping[str, Any], mesh):
+    """The DTensor placements (a tuple, one per mesh dim) of one
+    logical-axis tuple on `mesh`."""
+    names = mesh.mesh_dim_names
+    return spec_to_placements(logical_to_spec(axes, rules, names), names)
+
+
 def tree_shardings(axes_tree, rules: Mapping[str, Any], mesh):
     """DTensor placements (a tuple, one per mesh dim) for every leaf of an
     axes tree on `mesh`."""
-    names = mesh.mesh_dim_names
-    return map_axes(lambda ax: spec_to_placements(
-        logical_to_spec(ax, rules, names), names), axes_tree)
+    return map_axes(lambda ax: axes_placements(ax, rules, mesh), axes_tree)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.layers import ACTS
 from repro_torch.nn.module import ParamBuilder
+from repro_torch.train import annotate
 
 # bytes of one cast slice of an expert weight: the experts run a slice at
 # a time, so that where the weights are stored in another dtype than the
@@ -28,11 +29,14 @@ CAST_BYTES = 1 << 30
 def moe_init(b: ParamBuilder, name: str, d_model: int, d_ff: int,
              n_experts: int, gated: bool = True):
     sub = b.sub(name)
-    sub.add("router", (d_model, n_experts))
-    sub.add("wi", (n_experts, d_model, d_ff))
+    sub.add("router", (d_model, n_experts), ("embed", "expert"))
+    sub.add("wi", (n_experts, d_model, d_ff),
+            ("expert", "embed", "expert_mlp"))
     if gated:
-        sub.add("wg", (n_experts, d_model, d_ff))
-    sub.add("wo", (n_experts, d_ff, d_model))
+        sub.add("wg", (n_experts, d_model, d_ff),
+                ("expert", "embed", "expert_mlp"))
+    sub.add("wo", (n_experts, d_ff, d_model),
+            ("expert", "expert_mlp", "embed"))
 
 
 def _topk_route(logits, k: int):
@@ -110,7 +114,9 @@ def moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
     aux_loss = n_experts * torch.sum(me * ce)
 
     cap = capacity(t, top_k, n_experts, capacity_factor)
-    _, keep, dest = dispatch_slots(topi, n_experts, cap)
+    # on local tensors where topi is a DTensor: DTensor has no rule for
+    # searchsorted
+    _, keep, dest = annotate.local(dispatch_slots, topi, n_experts, cap)
 
     # dispatch: every token k times into (E * C + 1, d), the dump slot last
     src_token = torch.arange(t, device=dev).repeat_interleave(top_k)

@@ -17,12 +17,19 @@ import torch.nn.functional as F
 from repro_torch.nn.layers import rmsnorm, rmsnorm_init
 from repro_torch.nn.module import ParamBuilder
 from repro_torch.nn.ssm import chunked_linear_rnn, linear_rnn_step
+from repro_torch.train import annotate
 
 
 def _floor1(x):
     """max(x, 1) with jnp.maximum's gradient (half to each side on a tie;
     torch.clamp passes all of it, ROADMAP Queue 3 P7)."""
     return torch.maximum(x, torch.ones_like(x))
+
+
+def _logsigmoid(x):
+    """F.logsigmoid, on local tensors where x is a DTensor (DTensor has no
+    rule for its backward)."""
+    return annotate.local(F.logsigmoid, x)
 
 
 # ---------------------------------------------------------------------------
@@ -33,12 +40,12 @@ def _floor1(x):
 def mlstm_init(b: ParamBuilder, name: str, d_model: int, n_heads: int):
     d_head = d_model // n_heads
     sub = b.sub(name)
-    sub.add("wq", (d_model, n_heads * d_head))
-    sub.add("wk", (d_model, n_heads * d_head))
-    sub.add("wv", (d_model, n_heads * d_head))
-    sub.add("wif", (d_model, 2 * n_heads))
-    sub.add("bif", (2 * n_heads,), init="zeros")
-    sub.add("wo", (n_heads * d_head, d_model))
+    sub.add("wq", (d_model, n_heads * d_head), ("embed", "heads"))
+    sub.add("wk", (d_model, n_heads * d_head), ("embed", "heads"))
+    sub.add("wv", (d_model, n_heads * d_head), ("embed", "heads"))
+    sub.add("wif", (d_model, 2 * n_heads), ("embed", None))
+    sub.add("bif", (2 * n_heads,), (None,), init="zeros")
+    sub.add("wo", (n_heads * d_head, d_model), ("heads", "embed"))
     rmsnorm_init(sub, "out_norm", d_model)
 
 
@@ -53,8 +60,8 @@ def _mlstm_qkv(params, x, n_heads):
     v = heads(x @ params["wv"].to(dt))
     gates = x @ params["wif"].to(dt) + params["bif"].to(dt)
     i_g, f_g = torch.chunk(gates.float(), 2, dim=-1)          # (B, S, H)
-    log_f = F.logsigmoid(f_g)
-    i_g = torch.exp(F.logsigmoid(i_g))     # stabilised input gate in (0, 1)
+    log_f = _logsigmoid(f_g)
+    i_g = torch.exp(_logsigmoid(i_g))      # stabilised input gate in (0, 1)
     k = k / math.sqrt(q.shape[-1])
     return q, k, v, i_g, log_f
 
@@ -74,6 +81,14 @@ def mlstm(params, x, *, n_heads: int, chunk: int = 256, init_state=None,
     if return_state:
         return out, state
     return out
+
+
+# the logical axes of the decode states, as JAX's xlstm_arch.state_axes
+# gives them: the mLSTM matrix state sharded on batch only (4 heads do not
+# divide the model axis); the sLSTM (h, c, n) triple one axes entry
+# (("batch", "embed"),) * 3, which resolves to a replicated spec
+MLSTM_STATE_AXES = ("batch", None, None, None)
+SLSTM_STATE_AXES = (("batch", "embed"),) * 3
 
 
 def mlstm_decode_init(batch: int, d_model: int, n_heads: int, device=None):
@@ -104,9 +119,10 @@ def mlstm_decode(params, x, state, *, n_heads: int):
 def slstm_init(b: ParamBuilder, name: str, d_model: int, n_heads: int):
     sub = b.sub(name)
     # input and recurrent weights of the 4 gates (i, f, z, o)
-    sub.add("w", (d_model, 4 * d_model))
-    sub.add("r", (n_heads, d_model // n_heads, 4 * (d_model // n_heads)))
-    sub.add("bias", (4 * d_model,), init="zeros")
+    sub.add("w", (d_model, 4 * d_model), ("embed", "mlp"))
+    sub.add("r", (n_heads, d_model // n_heads, 4 * (d_model // n_heads)),
+            (None, None, None))
+    sub.add("bias", (4 * d_model,), ("mlp",), init="zeros")
     rmsnorm_init(sub, "out_norm", d_model)
 
 
@@ -124,7 +140,7 @@ def _slstm_cell(params, x_t, carry, n_heads):
     rec = rec.reshape(b_, n_heads, 4, dh).transpose(1, 2).reshape(b_, 4 * d)
     pre = x_t.float() + rec + params["bias"].float()
     i_g, f_g, z_g, o_g = torch.chunk(pre, 4, dim=-1)
-    i_g = torch.exp(F.logsigmoid(i_g))                     # stabilised
+    i_g = torch.exp(_logsigmoid(i_g))                      # stabilised
     f_g = torch.sigmoid(f_g)
     z_g = torch.tanh(z_g)
     o_g = torch.sigmoid(o_g)

@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.nn.module import map_axes
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -29,8 +30,7 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 class Optimizer:
     init: Callable
     update: Callable
-    # param axes tree -> the state's axes tree (AdamW's; the others' are
-    # not ported yet)
+    # param axes tree -> the state's axes tree
     state_axes: Callable | None = None
 
 
@@ -165,7 +165,16 @@ def adafactor(lr, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
             new_m = tree_map(lambda t: t[1], pairs)
         return updates, {"m": new_m, "step": step}
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        def mk(ax):
+            if len(ax) >= 2:
+                return {"vr": tuple(ax[:-1]),
+                        "vc": tuple(ax[:-2]) + tuple(ax[-1:])}
+            return {"v": tuple(ax)}
+
+        return {"m": map_axes(mk, param_axes), "step": ()}
+
+    return Optimizer(init, update, state_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +203,12 @@ def sgd(lr, momentum: float = 0.0) -> Optimizer:
             return (tree_map(lambda g: -lr_t * g.float(), grads),
                     {"step": step})
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        if momentum:
+            return {"mu": param_axes, "step": ()}
+        return {"step": ()}
+
+    return Optimizer(init, update, state_axes)
 
 
 OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor, "sgd": sgd}

@@ -30,7 +30,13 @@ its local storage, which `fn` may write in place. Arguments at the
 positions in `writes` are state that `fn` updates in place: their local
 copies are written back to the DTensors' own shards.
 On plain tensors `local` calls `fn` directly, so the single-device path
-runs the same ops as before, CUDA graphs included."""
+runs the same ops as before, CUDA graphs included.
+
+The zoo's specs (`launch/specs.py`) add: `group_placements` (the batch
+and head shards a `local` call of attention or of the linear recurrence
+keeps), `split_dim` (a reshape that gathers a dim DTensor cannot split),
+`replicate`, and `write_index` (a KV-cache write on the shard that owns
+the position). Each is the plain op on plain tensors."""
 from __future__ import annotations
 
 import contextlib
@@ -136,29 +142,40 @@ def _plain(t):
     return wait() if callable(wait) else t
 
 
-def local(fn, *args, placements=None, writes=(), **kw):
+def local(fn, *args, placements=None, writes=(), whole=(), **kw):
     """fn(*args, **kw) on local tensors (see the module docstring).
 
     placements: the DTensor placements (one per mesh dim) that the
-    arguments are redistributed to and the results carry; default
-    Replicate on every dim. writes: positions of arguments whose DTensor
-    leaves `fn` updates in place, written back to the leaves' own
-    placements (without autograd) after the call; they take no
-    gradient."""
+    arguments are redistributed to and the results carry (plain tensor
+    arguments taken as replicated); default Replicate on every dim, plain
+    tensor arguments passed as they are. writes: positions of arguments
+    whose DTensor leaves `fn` updates in place, written back to the
+    leaves' own placements (without autograd) after the call; they take
+    no gradient. whole: positions of arguments (small weights beside a
+    batch-sharded input) that reach `fn` replicated whatever `placements`
+    says; their gradients are partial sums over the mesh dims
+    `placements` shards."""
     dtensor = _dtensor_type()
     found = _first(dtensor, (args, kw)) if dtensor is not None else None
     if found is None:
         return fn(*args, **kw)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = found.device_mesh
-    pl = tuple(placements or [Replicate()] * mesh.ndim)
+    repl = (Replicate(),) * mesh.ndim
+    pl = tuple(placements or repl)
+    partial = [Partial() if isinstance(p, Shard) else Replicate()
+               for p in pl]
     pairs = []   # (DTensor leaf of a written argument, its local copy)
 
-    def to_local(t, written=False):
+    def to_local(t, written=False, is_whole=False):
         if not isinstance(t, DTensor):
-            return t
-        d = t.redistribute(mesh, pl)
-        loc = _plain(d.to_local())
+            if placements is None or is_whole:
+                return t
+            # a plain tensor is the whole value on every rank: its shard
+            t = DTensor.from_local(t, mesh, repl, run_check=False)
+        d = t.redistribute(mesh, repl if is_whole else pl)
+        loc = _plain(d.to_local(grad_placements=partial) if is_whole
+                     else d.to_local())
         if not d.requires_grad:
             # a detached alias of the local storage, which `fn` may write
             # in place under autograd (a view made by to_local may not be)
@@ -167,8 +184,9 @@ def local(fn, *args, placements=None, writes=(), **kw):
             pairs.append((t, loc))
         return loc
 
-    local_args = [map_tensors(lambda t, w=(i in writes): to_local(t, w),
-                              a) for i, a in enumerate(args)]
+    local_args = [map_tensors(lambda t, w=(i in writes), h=(i in whole):
+                              to_local(t, w, h), a)
+                  for i, a in enumerate(args)]
     out = fn(*local_args, **map_tensors(to_local, kw))
     with torch.no_grad():
         for t, loc in pairs:
@@ -181,3 +199,103 @@ def local(fn, *args, placements=None, writes=(), **kw):
                              .to_local()))
     return map_tensors(
         lambda t: DTensor.from_local(t, mesh, pl, run_check=False), out)
+
+
+def _unsharded_placements(t, dim: int):
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in t.placements]
+
+
+def replicate(x):
+    """A DTensor `x` whole on every rank; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _dim_range(t, dim: int) -> tuple[int, int]:
+    """[start, stop) of `t`'s dim `dim` that this rank's shard of the
+    DTensor `t` holds: the dim is split over its Shard(dim) mesh dims in
+    the mesh's order, each split as `torch.chunk` splits (DTensor's
+    layout)."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    start, length = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-length // mesh.size(i))
+            lo = min(coord[i] * chunk, length)
+            start, length = start + lo, min(chunk, length - lo)
+    return start, start + length
+
+
+def write_index(dst, dim: int, index: int, value) -> None:
+    """dst[(:,) * dim + (index,)] = value, in place, without autograd.
+    On a DTensor `dst` only the rank whose shard holds `index` along
+    `dim` writes, into its local shard (a KV cache sharded on its
+    sequence dim, long_500k's rules, is not gathered for it); `value` is
+    redistributed to dst's placements on the other dims first."""
+    with torch.no_grad():
+        if not is_dtensor(dst):
+            dst.select(dim, index).copy_(value)
+            return
+        from torch.distributed.tensor import DTensor, Replicate
+        pl = _unsharded_placements(dst, dim)
+        if not is_dtensor(value):
+            value = DTensor.from_local(value, dst.device_mesh,
+                                       [Replicate()] * dst.device_mesh.ndim,
+                                       run_check=False)
+        row = _plain(value.unsqueeze(dim).redistribute(
+            dst.device_mesh, pl).to_local())
+        lo, hi = _dim_range(dst, dim)
+        if lo <= index < hi:
+            dst.to_local().select(dim, index - lo).copy_(row.select(dim, 0))
+
+
+def split_dim(x, dim: int, sizes):
+    """x with dim `dim` unflattened into `sizes` (a reshape). DTensor
+    cannot split a sharded dim whose first part does not divide over its
+    shards (qwen3's 8 kv heads on a 16-wide "model" axis): such a dim is
+    gathered first, its other placements kept."""
+    dim = dim % x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        ranks = 1
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == dim:
+                ranks *= x.device_mesh.size(i)
+        if sizes[0] % ranks:
+            x = x.redistribute(x.device_mesh, _unsharded_placements(x, dim))
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def group_placements(args, dims):
+    """Placements for a function of independent groups along `dims` of
+    every tensor in `args` (the batch and head dims of attention and of
+    the linear recurrence): on each mesh dim, the first DTensor's Shard of
+    one of `dims` where that dim of every tensor divides over all the mesh
+    dims sharding it, else Replicate; None when no argument is a
+    DTensor."""
+    dtensor = _dtensor_type()
+    first = _first(dtensor, args) if dtensor is not None else None
+    if first is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = first.device_mesh
+    tensors = []
+    map_tensors(tensors.append, args)
+    pl = list(first.placements)
+    for d in dims:
+        on = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+              and p.dim == d]
+        ranks = 1
+        for i in on:
+            ranks *= mesh.size(i)
+        if any(t.shape[d] % ranks for t in tensors):
+            for i in on:
+                pl[i] = Replicate()
+    return tuple(p if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in pl)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import typing
 
 import torch
 
@@ -46,12 +47,6 @@ STRATEGIES = ("gspmd", "compact_update", "optimized")
 def _replicated(mesh):
     from torch.distributed.tensor import Replicate
     return tuple(Replicate() for _ in range(mesh.ndim))
-
-
-def _placements(axes, rules, mesh):
-    names = mesh.mesh_dim_names
-    return module_lib.spec_to_placements(
-        module_lib.logical_to_spec(axes, rules, names), names)
 
 
 def _meta_params(shapes):
@@ -73,8 +68,8 @@ def event_batch_struct(batch_size: int, d_edge: int) -> EventBatch:
 
 def event_batch_sharding(mesh, rules) -> EventBatch:
     """An EventBatch of placements: every column sharded on "event"."""
-    s1 = _placements(("event",), rules, mesh)
-    s2 = _placements(("event", None), rules, mesh)
+    s1 = module_lib.axes_placements(("event",), rules, mesh)
+    s2 = module_lib.axes_placements(("event", None), rules, mesh)
     return EventBatch(src=s1, dst=s1, t=s1, feat=s2, mask=s1)
 
 
@@ -91,8 +86,8 @@ def macro_batch_struct(n_stacked: int, batch_size: int,
 def macro_batch_sharding(mesh, rules) -> EventBatch:
     """Stacked batches shard like per-batch events, one dim deeper: the
     scan dim unsharded, the event dim dim 1."""
-    s1 = _placements((None, "event"), rules, mesh)
-    s2 = _placements((None, "event", None), rules, mesh)
+    s1 = module_lib.axes_placements((None, "event"), rules, mesh)
+    s2 = module_lib.axes_placements((None, "event", None), rules, mesh)
     return EventBatch(src=s1, dst=s1, t=s1, feat=s2, mask=s1)
 
 
@@ -207,7 +202,8 @@ def _make_raw_train_step(cfg: MDGNNConfig, opt, mesh=None,
         """Pin a per-occurrence tensor's leading dim to the event axes."""
         if not annotate.is_dtensor(x):
             return x
-        pl = _placements(("event",) + (None,) * (x.ndim - 1), rules, mesh)
+        pl = module_lib.axes_placements(("event",) + (None,) * (x.ndim - 1),
+                                        rules, mesh)
         return x.redistribute(mesh, pl)
 
     def _compact(x):
@@ -330,12 +326,25 @@ def full_tree(tree):
                          if isinstance(t, DTensor) else t, tree)
 
 
+class Collective(typing.NamedTuple):
+    """One collective of a `collective_log`: the functional op's name
+    ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+    "all_to_all_single", ...), the shape of the local tensor it takes,
+    whether the backward pass issued it, the shape and dtype of the local
+    tensor it gives, and its process group's name."""
+    name: str
+    shape: tuple
+    in_backward: bool
+    out_shape: tuple
+    dtype: torch.dtype
+    group: str
+
+
 def collective_log():
-    """A `CommDebugMode` that also keeps every collective's name and the
-    shape of the local tensor it moves, in `.shapes` (the counterpart of
-    the dry run's HLO collective sizes) and whether the backward pass
-    issued it: `with collective_log() as log:` ... `log.get_comm_counts()`,
-    `log.shapes` ([(name, shape, in_backward), ...])."""
+    """A `CommDebugMode` that also keeps every collective in `.shapes`, a
+    list of `Collective`s (the counterpart of the dry run's HLO collective
+    sizes): `with collective_log() as log:` ... `log.get_comm_counts()`,
+    `log.shapes`."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     class CollectiveLog(CommDebugMode):
@@ -344,13 +353,18 @@ def collective_log():
             self.shapes = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = str(func.overloadpacket)
-            if name.startswith(("c10d_functional.", "_c10d_functional.")) \
-                    and "wait" not in name and args \
-                    and isinstance(args[0], torch.Tensor):
-                self.shapes.append((name.split(".")[-1],
-                                    tuple(args[0].shape),
-                                    torch._C._current_graph_task_id() != -1))
-            return super().__torch_dispatch__(func, types, args, kwargs)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            space, _, op = str(func.overloadpacket).rpartition(".")
+            if space in ("c10d_functional", "_c10d_functional") \
+                    and op.startswith(("all_", "reduce_scatter",
+                                       "broadcast")) and args \
+                    and isinstance(args[0], torch.Tensor) \
+                    and isinstance(out, torch.Tensor):
+                self.shapes.append(Collective(
+                    op, tuple(args[0].shape),
+                    torch._C._current_graph_task_id() != -1,
+                    tuple(out.shape), out.dtype,
+                    args[-1] if isinstance(args[-1], str) else ""))
+            return out
 
     return CollectiveLog()

@@ -104,3 +104,40 @@ def test_no_device_without_cuda_raises(tiny_stream):
     from repro_torch.launch import serve as tserve
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--pres", "--use-kernels", "--max-events", "10"])
+
+
+def test_specs_and_dry_run_import_with_jax_blocked():
+    """The zoo's sharded specs and the dry run (and the modules they
+    changed) import with JAX blocked, and the dry run's CLI answers."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
+            "import repro_torch.launch.mesh, repro_torch.train.distributed\n"
+            "import repro_torch.train.annotate, repro_torch.nn.module\n"
+            "import repro_torch.nn.layers, repro_torch.nn.moe\n"
+            "import repro_torch.nn.ssm, repro_torch.archs.base\n"
+            "import repro_torch.optim.optimizers, repro_torch.kernels.ref\n"
+            "from repro_torch.configs import SHAPES, shape_applicable\n"
+            "assert shape_applicable('zamba2-1.2b', 'long_500k')\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--help"], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "--strategy" in out.stdout, out.stderr
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every file of the JAX package has a file of the same path in the
+    port."""
+    jax_root = ROOT / "src" / "repro"
+    port_root = ROOT / "src" / "repro_torch"
+    missing = sorted(str(p.relative_to(jax_root))
+                     for p in jax_root.rglob("*.py")
+                     if not (port_root / p.relative_to(jax_root)).is_file())
+    assert not missing, missing
