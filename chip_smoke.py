@@ -44,10 +44,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4. serve-config at the paper model's widths (tgn_pres.CONFIG: d=100,
    d_time=32, K=10, 2 heads, 1 layer) on wiki-small: ServeEngine + replay
    over the serve tail with recommend_topk, the engine as users get it:
-   warmup() captures a CUDA graph per bucket for the bodies
-   `captured_bodies(cfg)` names (query and top-k always, the fold where
-   the memory stage is the memory_update_table kernel), and every key must
-   be prepared once, with nothing prepared during the replay
+   warmup() captures a CUDA graph per bucket for every body (ingest,
+   query and top-k, on every route: the fold waits for nothing on the
+   host), and every key must be prepared once and captured, with nothing
+   prepared during the replay
    (post_warmup_traces empty). The same replay then runs through a
    capture=False engine (events/s, p50/p99, peak memory side by side; AP
    within 1e-3, states within `_compare_states`' tolerances, the same
@@ -60,9 +60,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    serve-config-apan / serve-production-apan: the same for APAN (mailbox
    attention through neighbor_attn); serve-config-rnn /
    serve-production-rnn: the rnn memory cell, PRES through pres_filter
-   (its fold stays eager: mdgnn.memory_update waits for the host);
+   (the cell route of mdgnn.memory_update, its fold captured too);
    serve-config-jodie / serve-production-jodie: JODIE with PRES (its time
    projection has no kernel: memory_update_table and link_score).
+   serve-config-std (Alg. 1: the gru_cell kernel) / serve-config-plain
+   (use_kernels=False: no launch): the cell routes at CONFIG widths, the
+   captured engine held to the capture=False one under deterministic
+   algorithms with states, query scores and top-k equal.
    serve-parity: serve/parity.py's gate, the captured engine against
    loop.make_eval_step in lock step over wiki-small's first 6,400 events
    (buckets 16 and 64), within 1e-5, each key prepared once.
@@ -140,20 +144,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    then pres_filter; flash_attn with the route that ran, its products'
    TFLOP/s and its share of the bound; embed_attn with its route, the
    fold, the U of its shape and the bound of the form before the fold).
-11. train-config-scan / -scan-std: macro-batch training (train/scan.py,
-   T = 8) of Alg. 2 (its macro step captured as one CUDA graph: the
-   memory stage is the memory_update_table kernel) and Alg. 1 (eager: its
-   memory stage waits for the host) at CONFIG widths on wiki-small, one
-   epoch + evaluate, against the lag-one loop from the same start and
-   generator: the launch counts equal (replays add their census), the
-   negatives of the captured and an eager scan equal the lag-one draws,
-   and under deterministic algorithms the epoch free-running and each
-   macro from the same carry within STEP_TOL, the epoch against the
-   plain versions within the free-running limits; `captured` true for
-   -scan and false for -scan-std; then events/s and the busy share of an
-   epoch of each side by side. train-production-scan: 40 captured steps
-   at PRODUCTION widths (b 1,000, T 8), step ms, the first 3 losses
-   against the lag-one loop's. train-production-store: tgn_pres.
+11. train-config-scan / -scan-std / -scan-rnn: macro-batch training
+   (train/scan.py, T = 8) of Alg. 2 (the memory_update_table kernel),
+   Alg. 1 (the gru_cell kernel) and the rnn cell with PRES (pres_filter),
+   each macro step captured as one CUDA graph, at CONFIG widths on
+   wiki-small, one epoch + evaluate, against the lag-one loop from the
+   same start and generator: the launch counts equal (replays add their
+   census), the negatives of the captured and an eager scan equal the
+   lag-one draws, and under deterministic algorithms the epoch
+   free-running and each macro from the same carry within STEP_TOL, the
+   epoch against the plain versions within the free-running limits;
+   `captured` true; then events/s of an epoch of each side by side, and
+   the busy shares of all six epochs from one profiler session.
+   train-production-scan: 40 captured steps at PRODUCTION widths (b
+   1,000, T 8), step ms, the first 3 losses against the lag-one loop's.
+   train-production-store: tgn_pres.
    PRODUCTION over stream-10m's first 1,000,000 events written by the
    port's converter into a temporary store (its 1,200,000-node space;
    d_edge 32 where PRODUCTION names 172): the store's batches equal the
@@ -364,6 +369,7 @@ ZOO_TOL = 1e-4
 SERVE_KERNELS = ("memory_update_table", "embed_attn", "link_score")
 APAN_SERVE_KERNELS = ("memory_update_table", "neighbor_attn", "link_score")
 RNN_SERVE_KERNELS = ("pres_filter", "embed_attn", "link_score")
+STD_SERVE_KERNELS = ("gru_cell", "embed_attn", "link_score")
 # JODIE's embedding is a plain projection: no embedding kernel
 JODIE_SERVE_KERNELS = ("memory_update_table", "link_score")
 # training against the plain route. Per step, from the same state: loss,
@@ -1147,11 +1153,12 @@ class Capture:
         self.ops.REGISTRY.update(self.saved)
 
 
-def _compare_states(a, b, label):
+def _compare_states(a, b, label, tol=1e-4):
     """Rings, times and counts exact; table, tracker sums and mailbox
-    messages to 1e-4 (the trackers are index_add_ sums whose CUDA atomics
-    order varies). The dump rows (last row of rings, trackers and
-    mailbox) are not state."""
+    messages to `tol` (1e-4: the trackers are index_add_ sums whose CUDA
+    atomics order varies; 0.0 where both ran under deterministic
+    algorithms). The dump rows (last row of rings, trackers and mailbox)
+    are not state."""
     import torch
     for key in ("nbr", "t", "ptr"):
         require(torch.equal(a["neighbors"][key][:-1],
@@ -1168,12 +1175,11 @@ def _compare_states(a, b, label):
                     f"{label}: mailbox {key} differ")
         x, y = a["mailbox"]["msg"][:-1], b["mailbox"]["msg"][:-1]
         err = float((x - y).abs().max())
-        require(err <= 1e-4 * max(1.0, float(y.abs().max())),
+        require(err <= tol * max(1.0, float(y.abs().max())),
                 f"{label}: mailbox messages differ by {err:.3g}")
         errs["mailbox"] = err
-    for key, x, y, tol in [
-            ("memory", a["memory"].mem, b["memory"].mem, 1e-4),
-            ("xi", pa.xi, pb.xi, 1e-4), ("psi", pa.psi, pb.psi, 1e-4)]:
+    for key, x, y in [("memory", a["memory"].mem, b["memory"].mem),
+                      ("xi", pa.xi, pb.xi), ("psi", pa.psi, pb.psi)]:
         err = float((x - y).abs().max())
         scale = max(1.0, float(y.abs().max()))
         require(err <= tol * scale, f"{label}: {key} differ by {err:.3g}")
@@ -1200,33 +1206,35 @@ def _report(label, rep, counts, engine):
         f" {torch.cuda.max_memory_reserved() / 1e6:.1f} MB reserved")
 
 
-def check_captured(label, eng):
-    """Every key the engine prepared, once; a CUDA graph for exactly the
-    keys whose body `captured_bodies(cfg)` names (a capture that failed
-    would have raised)."""
-    from repro_torch.serve import captured_bodies
-    kinds = captured_bodies(eng.cfg)
+def check_captured(label, eng, kinds=("ingest", "query", "topk")):
+    """Every key the engine prepared, once, and a CUDA graph for each:
+    every body of every config is captured (a capture that failed would
+    have raised), and among them a key of each body in `kinds`."""
     graphs = sorted(k for k, slot in eng._slots.items()
                     if slot.graph is not None)
     log(f"[{label}] trace_counts {sorted(eng.trace_counts.items())}; "
         f"captured {graphs}")
     require(all(c == 1 for c in eng.trace_counts.values()),
             f"{label}: a key prepared twice: {dict(eng.trace_counts)}")
-    require(all((slot.graph is not None) == (k[0] in kinds)
-                for k, slot in eng._slots.items()),
-            f"{label}: captured {graphs}, expected the {sorted(kinds)} keys")
+    require(len(graphs) == len(eng._slots)
+            and set(kinds) <= {k[0] for k in graphs},
+            f"{label}: captured {graphs} of {sorted(eng._slots)}, expected "
+            f"every key, and the {sorted(kinds)} bodies among them")
     return graphs
 
 
 def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
                 max_events, query_batch, topk_src, k, oracle_replay,
-                big_query, probe, expect=SERVE_KERNELS, profile=0):
-    """The engine as users get it (a CUDA graph per bucket where
-    `captured_bodies(cfg)` allows), warmed up, then the replay, a large
-    query and top-k with the launch counters set to 0 just before and
-    read just after; the same through a capture=False engine, held to it
-    (AP within 1e-3, states within `_compare_states`' tolerances, the
-    same launch counts); then the plain versions (kernels_mode="oracle")."""
+                big_query, probe, expect=SERVE_KERNELS, profile=0,
+                exact=False):
+    """The engine as users get it (a CUDA graph per bucket and body),
+    warmed up, then the replay, a large query and top-k with the launch
+    counters set to 0 just before and read just after; the same through a
+    capture=False engine, held to it (AP within 1e-3, states within
+    `_compare_states`' tolerances, the same launch counts; with `exact`
+    both run under deterministic algorithms and states, query scores and
+    top-k must be equal); then the plain versions (kernels_mode=
+    "oracle")."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1277,8 +1285,10 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
                 "reserved": (torch.cuda.max_memory_reserved() - res0) / 1e6}
         return rep, counts, folds[0], scores, vals, ids, warm_s, peak
 
+    det = _deterministic if exact else contextlib.nullcontext
     eng = engine("auto")
-    rep, counts, folds, scores, vals, ids, warm_s, peak = drive(eng)
+    with det():
+        rep, counts, folds, scores, vals, ids, warm_s, peak = drive(eng)
     _report(label, rep, counts, eng)
     graphs = check_captured(label, eng)
     summary = {"events": rep.n_events, "folds": folds,
@@ -1297,8 +1307,8 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
             f"{rep.post_warmup_traces}")
     check_launches(label, counts, expect)
     stage = memory_stage_kernel(cfg)
-    require(counts[stage] == folds, f"{label}: {stage} launched "
-            f"{counts[stage]} times in {folds} folds")
+    require(stage is None or counts[stage] == folds, f"{label}: {stage} "
+            f"launched {counts.get(stage)} times in {folds} folds")
     require(np.isfinite(scores).all() and scores.shape == (big_query,),
             f"{label}: bad query scores")
     require(vals.shape == (len(topk_src), k) and np.isfinite(vals).all()
@@ -1308,11 +1318,16 @@ def serve_phase(label, cfg, stream, dst_range, dev, *, rate, tick,
 
     # the same replay through the engine without graphs
     eager = engine("auto", capture=False)
-    rep_e, counts_e, folds_e, scores_e, vals_e, _, warm_e, peak_e = \
-        drive(eager)
-    errs = _compare_states(eng.state, eager.state, f"{label} vs eager")
+    with det():
+        rep_e, counts_e, folds_e, scores_e, vals_e, ids_e, warm_e, peak_e = \
+            drive(eager)
+    errs = _compare_states(eng.state, eager.state, f"{label} vs eager",
+                           tol=0.0 if exact else 1e-4)
     e_err = max(float(np.abs(scores - scores_e).max()),
                 float(np.abs(vals - vals_e).max()))
+    require(not exact or (e_err == 0.0 and np.array_equal(ids, ids_e)),
+            f"{label}: query scores or top-k differ from the eager "
+            f"engine's (max |diff| {e_err:.3g})")
     summary["eager"] = {
         "events_per_s": rep_e.events_per_sec,
         "ingest_p50_ms": rep_e.ingest_p50_ms,
@@ -1428,30 +1443,82 @@ def _profile_prefill(label, dev, seed):
     _report_profile(label, prof, wall_us, "one bf16 prefill")
 
 
+# the prefix of `_profile_windows`' record_function ranges
+WINDOW = "window#"
+
+
+def _is_range(name):
+    """A record_function range's device-side entry, not a kernel: the
+    engine's and the train step's stages (obs.trace.stage; those span
+    their kernels and the gaps between them) and `_profile_windows`'."""
+    return (name.startswith(("serve_", "step#", WINDOW))
+            or name in ("memory_update", "embed", "loss", "apply"))
+
+
 def _report_profile(label, prof, wall_us, what):
     """Device time by kernel and the device busy share of the window's
     wall time (the profiler's own host overhead is inside that wall
     time)."""
     import torch
-    # device-side entries, without the record_function ranges of the
-    # engine's and the train step's stages (obs.trace.stage; those span
-    # their kernels and the gaps between them)
-    ranges = ("serve_", "step#", "memory_update", "embed", "loss", "apply")
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not (e.key.startswith(ranges[:2])
-                       or e.key in ranges[2:])]
-    busy_us = sum(e.self_device_time_total for e in events)
+    _report_kernels(label, [
+        (e.key, e.self_device_time_total, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not _is_range(e.key)], wall_us, what)
+
+
+def _report_kernels(label, rows, wall_us, what):
+    """Log and record (PROFILES) a window's kernels, rows of (name,
+    device us, launches): the busy time and share of its wall time."""
+    busy_us = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
     PROFILES[label] = {"window": what, "wall_ms": wall_us / 1e3,
                        "busy_ms": busy_us / 1e3,
                        "busy_share": busy_us / wall_us,
-                       "launches": sum(e.count for e in events)}
+                       "launches": launches}
     log(f"[{label}] profile: {what}: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
-        f"{sum(e.count for e in events)} kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[{label}] profile: {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d} x {e.key[:90]}")
+        f"{launches} kernel launches")
+    for name, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"[{label}] profile: {us / 1e3:9.3f} ms {n:6d} x {name[:90]}")
+
+
+def _profile_windows(windows):
+    """ONE torch.profiler session over `windows`, each (label, run, what):
+    run() between two synchronizations, inside a record_function range of
+    its own, and the window's device busy time the kernels that began
+    within that range. The scan phases' windows share this session, the
+    first of the process, so no CUDA graph replay is traced by a session
+    that follows another."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, run, _ in windows:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(WINDOW + label):
+                run()
+                torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    spans = {e.name[len(WINDOW):]: e.time_range for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith(WINDOW)}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not _is_range(e.name)]
+    for label, _, what in windows:
+        require(label in spans, f"{label}: the profile has no range of "
+                f"its window")
+        span, by = spans[label], {}
+        for e in kernels:
+            if span.start <= e.time_range.start <= span.end:
+                us, n = by.get(e.name, (0.0, 0))
+                by[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        _report_kernels(label, [(k, us, n) for k, (us, n) in by.items()],
+                        walls[label], what)
 
 
 # ---------------------------------------------------------------------------
@@ -1884,7 +1951,7 @@ def parity_phase(label, cfg, stream, dst_range, dev):
     counts = ops.launch_counts()
     log(f"[{label}] {len(stream)} events, {n_scored} pairs scored: "
         f"max|engine - eval_step| = {max_diff:.3g} ({secs:.1f}s)")
-    graphs = check_captured(label, eng)
+    graphs = check_captured(label, eng, kinds=("ingest", "query"))
     check_launches(label, counts, ("memory_update_table", "embed_attn"))
     require(n_scored > 1000, f"{label}: only {n_scored} pairs scored")
     require(max_diff < 1e-5, f"{label}: serve/evaluate drift {max_diff}")
@@ -2039,7 +2106,7 @@ def _macro_vs_lag_one(cfg, opt, dst_range, worst):
 
 
 def scan_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
-               expect, captured, chunk=8, profile=True):
+               expect, captured, chunk=8, windows=None):
     """Macro-batch training (train/scan.py, T = `chunk`) for one epoch and
     `evaluate` at `cfg`'s widths, against the lag-one loop from the same
     start and the same generator: the launch counts equal (the graph's
@@ -2049,11 +2116,10 @@ def scan_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     the same carry (`_macro_vs_lag_one`) within STEP_TOL, and the epoch
     against the plain versions (kernels_mode="oracle") within the
     free-running limits. `ScanEngine.captured` must be `captured`. Then a
-    second epoch of each, timed (events/s), and (with `profile`) one
-    epoch of each under torch.profiler (the busy share)."""
+    second epoch of each, timed (events/s); `windows` gets one more epoch
+    of each for `_profile_windows` (the busy share)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.graph.negatives import sample_negatives
     from repro_torch.kernels import ops
     from repro_torch.models import mdgnn
@@ -2152,17 +2218,11 @@ def scan_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
         summary[f"{name}_first_epoch_s"] = r["first_epoch_s"]
         summary[f"{name}_events_per_s"] = steps * batch_size / r["epoch_s"]
         summary[f"{name}_step_ms"] = r["epoch_s"] / steps * 1e3
-    if profile:
-        for name, r in runs.items():
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                (_, _, _, _), secs = _epoch(r["engine"], cfg, opt,
-                                            r["carry"], batches, r["gen"],
-                                            dst_range)
-            _report_profile(f"{label}-{name}", prof, secs * 1e6,
-                            f"one epoch ({steps} steps)")
-            summary[f"{name}_busy_share"] = \
-                PROFILES[f"{label}-{name}"]["busy_share"]
+    for name, r in runs.items():
+        if windows is not None:
+            windows.append((f"{label}-{name}", functools.partial(
+                _epoch, r["engine"], cfg, opt, r["carry"], batches,
+                r["gen"], dst_range), f"one epoch ({steps} steps)"))
     brief = {k: v for k, v in summary.items() if k != "vs"}
     log(f"[{label}] {json.dumps(brief)}")
     require(np.isfinite(summary["loss"]), f"{label}: loss not finite")
@@ -2355,7 +2415,7 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     negatives, the path's kernels launched and no other, the memory
     stage's kernel n times a step (memory_update_table; once for the cell
     kernels), on the pipelined schedule pres_predict once a step, the scan
-    engine captured as `scan.captures` says. Each shard count is held to
+    engine captured on the card. Each shard count is held to
     one shard's run as the train phases hold two routes: every step from
     the SAME carry (the n = 1 run's, sharded for the step and unsharded
     after it) within STEP_TOL (loss and memory table 1e-5; not for the
@@ -2399,11 +2459,9 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                 require(counts["pres_predict"] == steps,
                         f"{label}-{n}: pres_predict {counts['pres_predict']}")
             if eng is not None:
-                require(eng.captured == (scan.captures(cfg)
-                                         and dev.type == "cuda"),
-                        f"{label}-{n}: captured {eng.captured}, "
-                        f"scan.captures says {scan.captures(cfg)} "
-                        f"({eng.eager_reason})")
+                require(eng.captured == (dev.type == "cuda"),
+                        f"{label}-{n}: captured {eng.captured} on "
+                        f"{dev.type} ({eng.eager_reason})")
             require(np.isfinite(losses).all() and len(losses) == steps
                     and res.route_overflow == 0,
                     f"{label}-{n}: losses {losses[:3]}.., overflow "
@@ -3950,7 +4008,8 @@ LIBRARY = {"gru_cell": library_gru_cell,
 # phase groups, in the order they run; `--only` picks some
 PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
           "serve-production-apan", "serve-config-rnn", "serve-production-rnn",
-          "serve-config-jodie", "serve-production-jodie", "serve-parity",
+          "serve-config-jodie", "serve-production-jodie", "serve-config-std",
+          "serve-config-plain", "serve-parity",
           "train-config", "cli", "train-production", "train-config-pipe",
           "train-config-dense", "train-config-apan", "train-config-rnn",
           "train-config-rnn-std", "train-config-time", "train-config-jodie",
@@ -4175,7 +4234,7 @@ def main(argv=None):
     serve_sum = {}
     rnn = dict(memory_cell="rnn")
 
-    def serve(label, c, phase, expect, capture=(), key=None):
+    def serve(label, c, phase, expect, capture=(), key=None, exact=False):
         if label not in only:
             return
         prod = phase == "production"
@@ -4189,7 +4248,8 @@ def main(argv=None):
                     probe=200))
         counts, inputs, serve_sum[label] = timed(
             label, serve_phase, label, c, dev=dev, query_batch=32, k=10,
-            big_query=1024, expect=expect, profile=args.profile, **run)
+            big_query=1024, expect=expect, profile=args.profile,
+            exact=exact, **run)
         keep(capture, key or phase, inputs, counts)
 
     serve("serve-config", cfg, "config", SERVE_KERNELS, SERVE_KERNELS)
@@ -4205,6 +4265,12 @@ def main(argv=None):
           JODIE_SERVE_KERNELS)
     serve("serve-production-jodie", rp(pcfg, **jodie), "production",
           JODIE_SERVE_KERNELS)
+    # the cell routes at CONFIG widths, held bit for bit against the eager
+    # engine: Alg. 1 (the gru_cell kernel) and the plain route (no launch)
+    serve("serve-config-std", rp(cfg, use_pres=False), "config",
+          STD_SERVE_KERNELS, exact=True)
+    serve("serve-config-plain", rp(cfg, use_kernels=False), "config", (),
+          exact=True)
     if "serve-parity" in only:
         # the offline-parity gate at CONFIG widths on wiki-small's first
         # 6,400 events (100 batches of 64)
@@ -4343,17 +4409,35 @@ def main(argv=None):
     if "train-production-jodie" in only:
         train("train-production-jodie", rp(pcfg, **jodie), "production",
               ("memory_update_table",))
-    # 11. macro-batch training (T 8): Alg. 2 captured as a CUDA graph a
-    # macro, Alg. 1 eager (its memory stage waits for the host)
+    # 11. macro-batch training (T 8), each route's macro captured as a
+    # CUDA graph: Alg. 2 (the memory_update_table kernel), Alg. 1 (the
+    # gru_cell kernel) and the rnn cell with PRES (pres_filter); one
+    # profiler session for all their epochs
     if "train-config-scan" in only:
-        train_sum["train-config-scan"] = timed(
-            "train-config-scan", scan_phase, "train-config-scan", cfg,
-            train_s, val_s, wiki_dst, dev, batch_size=500, expect=pres_path,
-            captured=True)
-        train_sum["train-config-scan-std"] = timed(
-            "train-config-scan-std", scan_phase, "train-config-scan-std",
-            rp(cfg, use_pres=False), train_s, val_s, wiki_dst, dev,
-            batch_size=500, expect=std_path, captured=False, profile=False)
+        windows = []
+        scans = (("train-config-scan", cfg, pres_path),
+                 ("train-config-scan-std", rp(cfg, use_pres=False),
+                  std_path),
+                 ("train-config-scan-rnn", rp(cfg, **rnn), rnn_path))
+        for label, c, expect in scans:
+            train_sum[label] = timed(
+                label, scan_phase, label, c, train_s, val_s, wiki_dst, dev,
+                batch_size=500, expect=expect, captured=True,
+                windows=windows)
+        timed("train-config-scan-profile", _profile_windows, windows)
+        for label, _, _ in scans:
+            got = train_sum[label]
+            for name in ("scan", "lag-one"):
+                got[f"{name}_busy_share"] = \
+                    PROFILES[f"{label}-{name}"]["busy_share"]
+        side = lambda g: (f"events/s {g['scan_events_per_s']:.1f} / "
+                          f"{g['lag-one_events_per_s']:.1f}, busy "
+                          f"{100 * g['scan_busy_share']:.1f} / "
+                          f"{100 * g['lag-one_busy_share']:.1f} %")
+        for label, _, _ in scans:
+            log(f"[{label}] captured / lag-one: {side(train_sum[label])} "
+                f"(train-config-scan: "
+                f"{side(train_sum['train-config-scan'])})")
     if "train-production-scan" in only:
         train_sum["train-production-scan"] = timed(
             "train-production-scan", production_scan_phase,

@@ -7,7 +7,8 @@ probe of the benchmarks.
 
 Neighbour state layout: `nbr` (N + 1, K) int32 (-1 = empty slot), `t`
 (N + 1, K) float32 and `ptr` (N + 1,) int32, where row N is a dump row for
-masked or superseded ring writes; the state proper is rows [:N]. All
+masked or superseded ring writes; the state proper is rows [:N]. The
+memory table has no dump row: `write_selected` writes its rows. All
 updates are dense scatters with no data-dependent shapes."""
 from __future__ import annotations
 
@@ -153,6 +154,34 @@ def ring_buffer_append(buffers, ptr, nodes, values, mask) -> None:
         fb = buf.view((-1,) + tuple(buf.shape[2:]))
         fb[flat] = values[name].to(buf.dtype)
     ptr.copy_((ptr.long() + counts) % k)
+
+
+def write_selected(table, rows, keep, values):
+    """table[rows[i]] = values[i] for every i with keep[i] (kept rows
+    distinct), IN PLACE, as ONE index_put_ over all M positions: a fixed
+    shape that waits for nothing on the host, with no dump row, so the
+    (N, ...) table keeps its shape. Every other position writes a copy of
+    the first kept position's value at that position's row, so all the
+    writes to a row carry the same bits and the result does not depend on
+    which duplicate lands last. With nothing kept, every position writes
+    back the row it names (clamped into [0, N)) as it was.
+
+    `values` (M, ...) are cast to the table's dtype. Only the kept values
+    keep their autograd edge (the copies and the written-back row are
+    detached), so each written row's cotangent reaches one value, as a
+    write of the kept positions alone would pass it. Returns the table."""
+    m = rows.shape[0]
+    pos = torch.arange(m, device=rows.device)
+    first = torch.argmax(keep.to(torch.int32))    # 0 when nothing is kept
+    src = torch.where(keep, pos, first)
+    dst = torch.clamp(rows.index_select(0, src), max=table.shape[0] - 1)
+    lead = (m,) + (1,) * (values.dim() - 1)
+    vals = torch.where(keep.reshape(lead), values,
+                       values.detach().index_select(0, src))
+    held = table.index_select(0, dst[:1]).detach()
+    table.index_put_((dst,), torch.where(keep.any(), vals.to(table.dtype),
+                                         held))
+    return table
 
 
 def update_neighbors(state, batch: EventBatch) -> None:

@@ -8,6 +8,7 @@ import math
 
 import torch
 
+from repro_torch.core import batching
 from repro_torch.models import modules
 
 
@@ -68,7 +69,10 @@ def memory_update_table_ref(table, last_t, x, gather_idx, write_idx, times,
     fused rows rounded to bfloat16 (nearest, ties to even) as they are
     written, as the JAX kernel casts on load and store. Every
     row is gathered before any is written, and each valid node has one
-    selected occurrence, so the writes are unique."""
+    selected occurrence, so the kept writes are unique. The writes are
+    `batching.write_selected`'s: one write of fixed shape over all M
+    positions, no boolean-mask index, so the plain version waits for
+    nothing on the host either (a CUDA graph holds it)."""
     n = table.shape[0]
     g = gather_idx.long()
     ok = (g < n)[:, None]
@@ -78,9 +82,8 @@ def memory_update_table_ref(table, last_t, x, gather_idx, write_idx, times,
                                              scale, gamma, clip=clip,
                                              delta_mode=delta_mode)
     wi = write_idx.long()
-    sel = wi < n
-    table[wi[sel]] = fused[sel].to(table.dtype)
-    last_t[wi[sel]] = times[sel].to(last_t.dtype)
+    batching.write_selected(table, wi, wi < n, fused)
+    batching.write_selected(last_t, wi, wi < n, times)
     return table, last_t, s_meas, fused, delta
 
 

@@ -37,10 +37,7 @@ collective by NVLink's rate where its mesh dim lies in one 8-card node
 (ranks in mesh order, the last dim innermost), by the inter-node rate
 otherwise (every axis of the production meshes spans nodes). They are
 estimates from data-sheet figures, not measurements.
-Data-dependent shapes take their largest value: `torch.nonzero` on meta
-counts every element as nonzero (the MDGNN's masked row writes write
-every occurrence). A pair that fails is written with status "error" and
-the message.
+A pair that fails is written with status "error" and the message.
 """
 from __future__ import annotations
 
@@ -233,15 +230,6 @@ class LocalCost(TorchDispatchMode):
         return out
 
 
-def _all_nonzero():
-    """`torch.nonzero` on meta tensors counts every element (a torch
-    without that switch raises there)."""
-    from torch.fx.experimental import _config as fx_config
-    if not hasattr(fx_config, "meta_nonzero_assume_all_nonzero"):
-        return contextlib.nullcontext()
-    return fx_config.patch(meta_nonzero_assume_all_nonzero=True)
-
-
 @contextlib.contextmanager
 def fake_group(world: int):
     """A FakeStore process group of `world` ranks (this process rank 0)
@@ -289,8 +277,7 @@ def run_pair(arch_id: str, shape_name: str, multi_pod: bool,
             # the paper's own workload: a temporal batch of global_batch x
             # seq_len events against the production-size memory table, on
             # the port's kernel route (the fused memory_update_table pass,
-            # its plain version on meta; the cell route's row selection,
-            # torch.nonzero, has no meta kernel)
+            # its plain version on meta)
             from repro_torch.configs.tgn_pres import PRODUCTION
             cfg = cfg or dataclasses.replace(PRODUCTION, use_kernels=True)
             if strategy == "optimized":
@@ -316,7 +303,7 @@ def run_pair(arch_id: str, shape_name: str, multi_pod: bool,
                        math.prod(mesh.shape[i:]) for i in range(mesh.ndim)}
         t0 = time.perf_counter()
         with torch.no_grad() if shape.kind != "train" else \
-                contextlib.nullcontext(), _all_nonzero(), \
+                contextlib.nullcontext(), \
                 tdist.collective_log() as log, LocalCost() as cost:
             out = tdist.apply_spec(spec, mesh, *args)
         run_s = time.perf_counter() - t0

@@ -327,34 +327,22 @@ def memory_cell(cfg: MDGNNConfig, p, x, h):
     return modules.gru_cell(p, x, h)
 
 
-def write_rows(table, rows, values):
-    """table[rows] = values (cast to the table's dtype), IN PLACE; returns
-    the table. Autograd records the write."""
-    table[rows] = values.to(table.dtype)
-    return table
-
-
-def selected_positions(selected):
-    """The positions of the True flags (a data-dependent length: one host
-    sync on CUDA)."""
-    return torch.nonzero(selected)[:, 0]
-
-
 def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
                   batch: EventBatch, defer_write: bool = False):
     """Batch-parallel memory transition: the memory cell runs on the 2b
     endpoint occurrences and only each node's selected (chronologically
-    last) occurrence is written back, IN PLACE on `mem`. Autograd records
-    the write, so the new rows pass their gradient on to whatever later
-    reads `mem.mem`. With `defer_write` (PRES: `loop._apply_pres` writes the
-    fused rows instead) only `last_update` is written, so no row is written
-    twice. Finding the selected occurrences is one host sync on CUDA.
+    last) occurrence is written back, IN PLACE on `mem`, through
+    `batching.write_selected`: one write of fixed shape over the 2b
+    occurrences, which waits for nothing on the host, so a CUDA graph
+    holds it. Autograd records the write, so the new rows pass their
+    gradient on to whatever later reads `mem.mem`. With `defer_write`
+    (PRES: `loop._apply_pres` writes the fused rows instead) only
+    `last_update` is written, so no row is written twice.
 
     Returns (mem, info). info carries the rows PRES and the coherence loss
-    need, `t_prev` (with pres_scale="time": the occurrences' last-update
+    need and `t_prev` (with pres_scale="time": the occurrences' last-update
     times, gathered BEFORE the write, since the scale is 0 for every node
-    read after it; else None) and `written` (the positions of the selected
-    occurrences)."""
+    read after it; else None)."""
     nodes, times, msgs, mask, selected = memory_inputs(params, cfg, mem,
                                                        batch)
     h_prev = mem.mem[nodes].float()
@@ -366,16 +354,14 @@ def memory_update(params, cfg: MDGNNConfig, mem: MemoryState,
     new_rows = annotate.compact(new_rows)
     times, selected = annotate.compact(times), annotate.compact(selected)
     nodes = annotate.compact(nodes)
-    keep = annotate.local(selected_positions, selected)
-    rows = nodes.index_select(0, keep)
     if not defer_write:
-        mem.mem = annotate.local(write_rows, mem.mem, rows,
-                                 new_rows.index_select(0, keep))
-    mem.last_update = annotate.local(write_rows, mem.last_update, rows,
-                                     times.index_select(0, keep))
+        mem.mem = annotate.local(batching.write_selected, mem.mem, nodes,
+                                 selected, new_rows)
+    mem.last_update = annotate.local(batching.write_selected,
+                                     mem.last_update, nodes, selected, times)
     info = {"nodes": nodes, "selected": selected, "mask": mask,
             "s_prev": h_prev, "s_meas": new_rows, "t_prev": t_prev,
-            "t_now": times, "msgs": msgs, "written": keep}
+            "t_now": times, "msgs": msgs}
     return mem, info
 
 

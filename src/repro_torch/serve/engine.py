@@ -30,14 +30,13 @@ side stream (kernel builds, allocator growth; an ingest on a fully masked
 batch, which leaves the state's rows as they were) and captures it as a
 CUDA graph, replayed from then on, the port's counterpart of the JAX
 engine's program compiled once per bucket; all graphs share one memory
-pool. `warmup()` prepares every bucket. Query and top-k are captured for
-every config (`captured_bodies`). Ingest is captured only where the fold
-waits for nothing on the host: where the memory stage is the
-`memory_update_table` kernel (PRES, the GRU cell and kernels: TGN, dense
-TGN, APAN and JODIE). The other folds (the rnn cell, no PRES, the plain
-route) go through `mdgnn.memory_update`, whose `torch.nonzero` waits for
-the device (ROADMAP P10/P20), and run eagerly on the same static buffers.
-`capture=False` runs every body eagerly; the CPU never captures.
+pool. `warmup()` prepares every bucket. Every body of every config is
+captured: no fold waits for anything on the host, whether its memory
+stage is the `memory_update_table` kernel (PRES, the GRU cell and
+kernels) or the cell route of `mdgnn.memory_update` (the rnn cell, no
+PRES, the plain route), whose row writes have a fixed shape
+(`batching.write_selected`), as in the JAX engine, which compiles every
+body. `capture=False` runs every body eagerly; the CPU never captures.
 
 A captured graph writes into the storage the state and parameter tensors
 held at capture, so once a graph exists `state` and `params` cannot be
@@ -71,18 +70,6 @@ from repro_torch.serve.batcher import MicroBatcher
 from repro_torch.train import loop as loop_lib
 
 CPU = torch.device("cpu")
-
-
-def captured_bodies(cfg: MDGNNConfig) -> frozenset:
-    """The bodies an engine captures as CUDA graphs on a CUDA device:
-    "query" and "topk" always, "ingest" where the fold's memory stage is
-    the `memory_update_table` kernel (PRES, the GRU cell, kernels that
-    launch), whose fold has no host sync."""
-    bodies = {"query", "topk"}
-    if (cfg.use_kernels and cfg.use_pres and cfg.memory_cell == "gru"
-            and cfg.kernels_mode != "oracle"):
-        bodies.add("ingest")
-    return frozenset(bodies)
 
 
 @dataclasses.dataclass
@@ -241,7 +228,7 @@ class ServeEngine:
         inputs = tuple(torch.zeros(x.shape, dtype=x.dtype, device=self.device)
                        for x in host)
         slot = _Slot(inputs, self._body(key, inputs))
-        if self.capture and key[0] in captured_bodies(self.cfg):
+        if self.capture:
             self._capture(slot)
         self._slots[key] = slot
         self.trace_counts[key] += 1
@@ -345,8 +332,9 @@ class ServeEngine:
         """Prepare every bucket (on CUDA: capture its graphs) and run it
         once on a fully masked no-op batch and zero queries, so the first
         live request pays no capture, no kernel build and no allocator
-        growth. Every write of a masked fold goes to a dump row or is
-        skipped, so the state's rows [:N] stay bit-identical."""
+        growth. Every write of a masked fold goes to a dump row or writes
+        back what the row held, so the state's rows [:N] stay
+        bit-identical."""
         if topk_k is not None and self.item_range is None:
             raise ValueError("warmup(topk_k=...) needs the engine "
                              "constructed with item_range=(item_lo, item_hi)")

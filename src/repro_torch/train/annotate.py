@@ -19,7 +19,7 @@ the ranks of a threaded process group each install their own.
 
 `local(fn, *args)` is the port's counterpart of GSPMD replicating around
 an op it cannot shard. DTensor has no sharding rule for data-dependent
-shapes (`unique`, `nonzero`, a boolean mask), for a write into a plain
+shapes (`unique`, a boolean-mask index), for a write into a plain
 tensor that the step makes itself, or for a kernel called through
 `ctypes`. Where its arguments hold DTensors, `local` redistributes them
 to the given placements (replicated by default), calls `fn` on their

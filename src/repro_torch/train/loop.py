@@ -25,8 +25,8 @@ State updates are IN PLACE on the state dict's tensors where the JAX
 engine donates and aliases its buffers, and the state is detached after
 every step (the JAX step's stop_gradient). The step body
 (`make_step_body`) is shared by `make_train_step` and the scan engine
-(train/scan.py); with PRES, the GRU cell and kernels it waits for nothing
-on the host, so the scan engine captures it as a CUDA graph. With
+(train/scan.py); on every route it waits for nothing on the host, so
+the scan engine captures it as a CUDA graph. With
 cfg.obs_metrics the step's metrics carry the obs vector (obs/metrics.py),
 formed on the device and fetched once an epoch."""
 from __future__ import annotations
@@ -99,10 +99,8 @@ def _apply_pres(params, cfg: MDGNNConfig, mem, info, pres_state):
         base = s_pred if cfg.delta_mode == "innovation" else info["s_prev"]
         delta = (fused - base) / torch.clamp(scale, min=1.0)[:, None]
     fused = annotate.compact(fused)   # compact-update boundary
-    keep = info["written"]
-    mem.mem = annotate.local(mdgnn.write_rows, mem.mem,
-                             info["nodes"].index_select(0, keep),
-                             fused.index_select(0, keep))
+    mem.mem = annotate.local(batching.write_selected, mem.mem,
+                             info["nodes"], info["selected"], fused)
     return mem, fused, delta
 
 
@@ -400,7 +398,7 @@ class EpochResult:
     # with run_epoch(collect_logits=True): the AP of each step's logits
     aps: list = dataclasses.field(default_factory=list)
     # sharded runs (cfg.n_shards > 1): the epoch's budget-masked routed
-    # rows, nonzero only when cfg.shard_budget was tightened below the
+    # rows, non-zero only when cfg.shard_budget was tightened below the
     # overflow-free default
     route_overflow: int = 0
     # cfg.obs_metrics runs: {"series": {field: [floats]}, "steps": int},

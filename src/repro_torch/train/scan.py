@@ -16,10 +16,11 @@ steps as one macro step:
   (T, b), logit_n (T, b), neg_dst (T, b), obs (T, F)}) and stay there
   until the epoch ends.
 
-On the card, where the step waits for nothing on the host (`captures`:
-PRES, the GRU cell and kernels, whose memory stage is the
-`memory_update_table` kernel), the T steps are captured as ONE CUDA graph
-per (T, b) shape, JAX's one dispatch per T batches: the batch is copied
+On the card the step waits for nothing on the host on every route (the
+fused `memory_update_table` kernel with PRES, the GRU cell and kernels;
+the cell route's fixed-shape row writes, `batching.write_selected`,
+otherwise), so the T steps are captured as ONE CUDA graph per (T, b)
+shape, JAX's one dispatch per T batches: the batch is copied
 into static buffers, the graph replays the T forward, backward and AdamW
 steps, and the carry (parameters, optimizer state, model state) keeps its
 addresses (parameters and state are updated in place; the optimizer's
@@ -32,10 +33,8 @@ preceded by one step on a side stream on copies of the carry (the
 generator restored after it), which prepares cuBLAS, autograd and the
 allocator without touching the carry. A graph stays valid while the
 caller passes back the carry it returned; another carry is captured anew.
-The other routes (Alg. 1, the rnn cell, no PRES, the plain route) call
-`torch.nonzero` in `mdgnn.memory_update` (ROADMAP P10/P20) and run their
-macro steps eagerly, as does any macro with injected negatives, on the
-CPU, and with `capture=False`. A sharded state (cfg.n_shards > 1,
+A macro with injected negatives runs eagerly, as does every macro on the
+CPU and with `capture=False`. A sharded state (cfg.n_shards > 1,
 train/routing.py) captures the same way when its shards share one card:
 the routing protocol waits for nothing on the host, and its fused route
 updates every shard's table in place. Shards on several cards run
@@ -77,16 +76,6 @@ def check_schedule(cfg: MDGNNConfig) -> None:
             "body, while the pipelined schedule threads a snapshot through "
             "every step. Pick one: scan_chunk for host-bound (small-batch) "
             "regimes, pipeline_depth for memory/embed overlap")
-
-
-def captures(cfg: MDGNNConfig) -> bool:
-    """Whether the step body waits for nothing on the host, so that a
-    macro step on CUDA can be captured: the memory stage is the
-    `memory_update_table` kernel (PRES, the GRU cell, kernels that
-    launch), sharded or not (a sharded state's shards on one card). The
-    other routes call `torch.nonzero` (P10/P20)."""
-    return (cfg.use_kernels and cfg.use_pres and cfg.memory_cell == "gru"
-            and cfg.kernels_mode != "oracle")
 
 
 def make_macro_step(cfg: MDGNNConfig, opt, dst_range):
@@ -199,10 +188,6 @@ class ScanEngine:
             return "not on CUDA"
         if not self.capture:
             return "capture=False"
-        if not captures(self.cfg):
-            return ("the step calls torch.nonzero (mdgnn.memory_update, "
-                    "ROADMAP P10/P20): Alg. 1, the rnn cell, no PRES or the "
-                    "plain route")
         if negatives is not None:
             return "negatives injected"
         if (self.cfg.n_shards > 1

@@ -582,6 +582,47 @@ def test_optimized_spec_matches_single_device_step():
            "bf16 memory table")
 
 
+@pytest.mark.parametrize("kw", [dict(use_pres=False),
+                                dict(memory_cell="rnn")],
+                         ids=["alg1", "rnn-pres"])
+def test_cell_route_spec_matches_single_device_step(kw):
+    """The cell routes (Alg. 1: the GRU cell; the rnn cell with PRES
+    through pres_filter), whose table and time writes
+    (`batching.write_selected`) run inside `annotate.local`: three spec
+    steps on the 1x1 mesh against the port's single-device step, loss and
+    memory table within 1e-5, last_update exact."""
+    tcfg = tmdgnn.MDGNNConfig(**dataclasses.asdict(_jcfg("lag", **kw)))
+    batches = [_tbatch(b) for b in list(_stream().temporal_batches(B))[:4]]
+    negs = [dataclasses.replace(b, dst=torch.roll(b.dst, 7))
+            for b in batches]
+
+    def carry():
+        params = tmdgnn.init_params(tcfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        opt = toptim.adamw(1e-3)
+        return params, opt.init(params), tmdgnn.init_state(tcfg, "cpu"), opt
+
+    p, o, s, opt = carry()
+    step = tloop.make_train_step(tcfg, opt)
+    want = []
+    for i in range(3):
+        p, o, s, m = step(p, o, s, batches[i], batches[i + 1], negs[i + 1])
+        want.append(float(m["loss"]))
+    with _group():
+        mesh = mesh_lib.make_debug_mesh(1, 1, device_type="cpu")
+        spec = tdist.make_mdgnn_train_spec(tcfg, B, mesh)
+        p2, o2, s2, _ = carry()
+        for i in range(3):
+            p2, o2, s2, m2 = tdist.apply_spec(spec, mesh, p2, o2, s2,
+                                              batches[i], batches[i + 1],
+                                              negs[i + 1])
+            _close(float(m2["loss"].full_tensor()), want[i], 1e-5,
+                   f"loss step {i + 1}")
+        mem = tdist.full_tree(s2)["memory"]
+    _close(mem.mem.numpy(), s["memory"].mem.numpy(), 1e-5, "memory table")
+    assert torch.equal(mem.last_update, s["memory"].last_update)
+
+
 # ---------------------------------------------------------------------------
 # A 2x2 mesh on the threaded process group
 # ---------------------------------------------------------------------------

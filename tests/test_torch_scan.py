@@ -135,8 +135,25 @@ def test_sample_negatives_in_draws_the_host_loop_negatives(tiny_stream):
 # ---------------------------------------------------------------------------
 
 
-def test_check_schedule_and_captures(tiny_stream):
-    cfg = _cfg(tiny_stream)
+# every route of the step: the memory_update_table kernel (PRES, the GRU
+# cell, kernels) and the cell routes of mdgnn.memory_update
+ROUTES = {
+    "tgn-pres": dict(), "dense": dict(dedup_embed=False),
+    "apan": dict(variant="apan"), "jodie": dict(variant="jodie"),
+    "rnn-pres": dict(memory_cell="rnn"), "alg1": dict(use_pres=False),
+    "plain": dict(use_kernels=False), "oracle": dict(kernels_mode="oracle"),
+    "rnn-std": dict(memory_cell="rnn", use_pres=False),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_check_schedule_and_captures(tiny_stream, route):
+    """check_schedule's errors, and every route's macro step (3 lag-one
+    steps: forward, backward and AdamW) on meta tensors (shapes without
+    data), where `torch.nonzero`, a boolean-mask index or a read of a
+    value on the host raises: on the card every route's macro is
+    captured as one CUDA graph."""
+    cfg = _cfg(tiny_stream, **ROUTES[route])
     with pytest.raises(ValueError, match="mutually exclusive"):
         tscan.check_schedule(dataclasses.replace(cfg, scan_chunk=2,
                                                  pipeline_depth=1))
@@ -148,10 +165,23 @@ def test_check_schedule_and_captures(tiny_stream):
         tscan.check_schedule(dataclasses.replace(cfg, scan_chunk=0))
     tscan.check_schedule(dataclasses.replace(cfg, scan_chunk=1,
                                              pipeline_depth=2))
-    assert tscan.captures(cfg)
-    for change in ({"use_pres": False}, {"memory_cell": "rnn"},
-                   {"use_kernels": False}, {"kernels_mode": "oracle"}):
-        assert not tscan.captures(dataclasses.replace(cfg, **change))
+    meta = torch.device("meta")
+    on_meta = lambda b: tevents.EventBatch(
+        *(getattr(b, f).to(meta) for f in ("src", "dst", "t", "feat",
+                                           "mask")))
+    batches = [on_meta(b) for b in
+               _tstream(tiny_stream).temporal_batches(100, "cpu")[:4]]
+    negs = [dataclasses.replace(b, dst=torch.flip(b.dst, (0,)))
+            for b in batches[1:]]
+    opt = toptim.adamw(1e-3)
+    params = tmdgnn.init_params(cfg, None, meta)
+    step = tscan.make_macro_step(dataclasses.replace(cfg, scan_chunk=3),
+                                 opt, DST)
+    _, _, state, m = step(params, opt.init(params),
+                          tmdgnn.init_state(cfg, meta), None,
+                          stack_batches(batches), negatives=negs)
+    assert m["loss"].shape == (3,) and m["logit_p"].shape == (3, 100)
+    assert state["memory"].mem.shape == (cfg.n_nodes, cfg.d_mem)
 
 
 def test_chunk1_bit_exact_with_lag_one_loop(tiny_stream):

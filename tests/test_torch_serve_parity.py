@@ -4,9 +4,9 @@ in lock step, the JAX gate's 1e-5), `trace_counts` keyed as JAX keys its
 traces (each key once, bounded by the bucket table, none added by live
 traffic after `warmup()`), the replay's `post_warmup_traces`, the static
 buffers against the bodies called on the padded request directly (bit
-for bit), which bodies a config captures on the card, the launch census
-that replays add to the counters, and the state that cannot be re-bound
-under a captured graph.
+for bit), every route's bodies free of host syncs (as a capture on the
+card needs), the launch census that replays add to the counters, and the
+state that cannot be re-bound under a captured graph.
 
 The CPU never captures: the bodies run eagerly on the static buffers,
 so the same engine code runs, the graphs aside (`chip_smoke.py` holds the
@@ -23,7 +23,7 @@ from repro_torch.graph import datasets as tdatasets
 from repro_torch.graph.events import EventBatch
 from repro_torch.kernels import ops
 from repro_torch.models import mdgnn as tmdgnn
-from repro_torch.serve import (MicroBatcher, ServeEngine, captured_bodies,
+from repro_torch.serve import (MicroBatcher, ServeEngine,
                                check_offline_parity, replay)
 
 BUCKETS = (16, 64)
@@ -161,23 +161,45 @@ def test_static_buffers_fold_as_direct_bodies(stream):
     assert torch.equal(sa["pres"].xi, sb["pres"].xi)
 
 
-def test_captured_bodies_follow_the_config(stream):
-    """Ingest is captured where the fold is the memory_update_table
-    kernel (PRES, GRU, kernels that launch); query and top-k always."""
-    base = _cfg(stream)
-    fused = [base, dataclasses.replace(base, dedup_embed=False),
-             dataclasses.replace(base, variant="apan"),
-             dataclasses.replace(base, variant="jodie"),
-             dataclasses.replace(base, kernels_mode="compiled")]
-    eager = [dataclasses.replace(base, memory_cell="rnn"),
-             dataclasses.replace(base, use_pres=False),
-             dataclasses.replace(base, use_kernels=False),
-             dataclasses.replace(base, kernels_mode="oracle")]
-    for cfg in fused:
-        assert captured_bodies(cfg) == {"ingest", "query", "topk"}
-    for cfg in eager:
-        assert captured_bodies(cfg) == {"query", "topk"}
-    assert not _engine(base, capture=True).capture    # the CPU never does
+# every route of the fold: the memory_update_table kernel (PRES, the GRU
+# cell, kernels) and the cell routes of mdgnn.memory_update
+ROUTES = {
+    "tgn-pres": dict(), "dense": dict(dedup_embed=False),
+    "apan": dict(variant="apan"), "jodie": dict(variant="jodie"),
+    "rnn-pres": dict(memory_cell="rnn"), "alg1": dict(use_pres=False),
+    "plain": dict(use_kernels=False), "oracle": dict(kernels_mode="oracle"),
+    "rnn-std": dict(memory_cell="rnn", use_pres=False),
+    "jodie-std": dict(variant="jodie", use_pres=False),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_captured_bodies_follow_the_config(stream, route):
+    """Every body of every config is captured on the card, so each must
+    run with no host sync and no data-dependent shape: the engine's
+    ingest, query and top-k, through their static buffers, on meta
+    tensors (shapes without data), where `torch.nonzero`, a boolean-mask
+    index or a read of a value on the host raises. The CPU never
+    captures."""
+    cfg = _cfg(stream, **ROUTES[route])
+    meta = torch.device("meta")
+    eng = ServeEngine(cfg, tmdgnn.init_params(cfg, None, meta),
+                      tmdgnn.init_state(cfg, meta), item_range=DST,
+                      device=meta,
+                      batcher=MicroBatcher(buckets=BUCKETS,
+                                           d_edge=cfg.d_edge))
+    z = np.zeros(16, np.int32)
+    eng._fold(EventBatch.from_numpy(z, z, np.zeros(16, np.float32),
+                                    np.zeros((16, cfg.d_edge), np.float32),
+                                    np.ones(16, bool), "cpu"))
+    zi, zt = torch.zeros(16, dtype=torch.int64), torch.zeros(16)
+    scores = eng._call(("query", 16), zi, zi, zt)
+    vals, ids = eng._call(("topk", 16, 5), zi, zt)
+    assert scores.shape == (16,) and vals.shape == ids.shape == (16, 5)
+    assert set(eng.trace_counts) == {("ingest", 16), ("query", 16),
+                                     ("topk", 16, 5)}
+    assert not eng.capture
+    assert not _engine(cfg, capture=True).capture    # the CPU never does
 
 
 def test_launch_census_round_trip():
