@@ -75,7 +75,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    b=500) through the epoch loop, then loop.evaluate over the validation
    split; then the same epoch from the same start and negatives through
    the kernels and with kernels_mode="oracle", both under deterministic
-   algorithms, compared free-running and step by step.
+   algorithms, compared free-running and step by step. Those runs are
+   eager (capture=False: the comparisons start steps from copies of a
+   carry, and the probes of kernel inputs see the wrappers' calls); the
+   epoch and evaluate then run again as users get them, each step a CUDA
+   graph's replay (train/capture.py): the train and eval steps must
+   report `captured`, the launch counts equal the eager run's, and under
+   deterministic algorithms the losses, logits, table, moments,
+   parameters and val AP equal the eager run's bit for bit; events/s, step
+   ms and evaluate's seconds side by side, and the busy share of 4 more
+   steps of each from the profiler session the scan phases share (this
+   for -pres, -std, -pipe-d1, -pipe, -dense, -apan, -rnn, -rnn-std,
+   -jodie, -plain and train-production-pres, -apan and -jodie).
    train-config-pipe (the pipelined schedule at depth 1, then at depth 2,
    pres_predict on every step), -dense (TGN's dense expansion,
    neighbor_attn), -apan (APAN), -rnn (the rnn cell with PRES: the cell,
@@ -99,7 +110,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    --checkpoint, then the serve CLI with --checkpoint on the file, and an
    engine restored from it against one built from the trainer's own
    params and state (query scores within TOL); cli-csv: the train CLI with
-   --csv tests/data/mini_jodie.csv.
+   --csv tests/data/mini_jodie.csv. The cli, cli-new, -time, -jodie,
+   -plain, -store and -shards runs write a run-log (--metrics-out) whose
+   epoch record must say that the train and eval steps ran captured.
 8. train-production-pres / -std / -pipe / -dense / -apan / -rnn / -jodie:
    40 steps at PRODUCTION widths on the first 41,000 stream-small events
    (b=1000), the first 3 steps' losses compared with the plain path; step
@@ -138,7 +151,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    memory_update in a probe of their train phases' path on the trained
    state; flash_attn and ssd_chunk in the zoo's bf16 prefills: a row for
    each zoo phase, and for gemma3's first, windowed, layer too), compared
-   there, set beside the card's bound for that work (`work`) and,
+   there (pres_predict and pres_filter beside a one-element torch.add's
+   time, the floor every launch pays), set beside the card's bound for
+   that work (`work`) and,
    where one PyTorch call computes the same function, beside that call's
    time, by events and on the device (memory_update also beside gru_cell
    then pres_filter; flash_attn with the route that ran, its products'
@@ -155,7 +170,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    free-running and each macro from the same carry within STEP_TOL, the
    epoch against the plain versions within the free-running limits;
    `captured` true; then events/s of an epoch of each side by side, and
-   the busy shares of all six epochs from one profiler session.
+   the busy shares of all six epochs from one profiler session (which
+   also traces the captured train phases' windows: the process's first
+   session, so no CUDA graph replay is traced by a session that follows
+   another).
    train-production-scan: 40 captured steps at PRODUCTION widths (b
    1,000, T 8), step ms, the first 3 losses against the lag-one loop's.
    train-production-store: tgn_pres.
@@ -225,6 +243,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import typing
 import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1445,6 +1464,10 @@ def _profile_prefill(label, dev, seed):
 
 # the prefix of `_profile_windows`' record_function ranges
 WINDOW = "window#"
+# train steps a window of `_captured_run` profiles, captured and eager
+# (the profiler's post-processing costs about half a second of host time
+# an eager CONFIG step)
+WINDOW_STEPS = 4
 
 
 def _is_range(name):
@@ -1542,17 +1565,42 @@ def _clone(params, opt_state, state, pstate=None):
                                 pstate.pending.clone(), pstate.tick),)
 
 
-def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
+class _Run(typing.NamedTuple):
+    """One `_run_train` run: per-step losses (floats), device-synced
+    seconds (timed runs) and (logit_p, logit_n); the EpochResult; (val
+    AP, val AUC) or None and each `evaluate` call's seconds; the final
+    parameters, optimizer state and state; the train and eval steps
+    (their `captured`, `eager_reason`; a pipelined step's `snapshot`).
+    (A NamedTuple: tests load this file by path, outside sys.modules,
+    where a dataclass cannot be made.)"""
+    losses: list
+    secs: list
+    logits: list
+    res: object
+    ev: tuple | None
+    eval_s: list
+    params: dict
+    opt_state: dict
+    state: dict
+    step: object
+    eval_step: object
+
+
+def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed,
+               capture=False):
     """pipeline.run_epoch (the lag-one loop at depth 0) over the first
     `steps` steps from clones of `start` = (params, opt_state, state), then
-    loop.evaluate when `val` = (batches, negatives) is given. Returns
-    (per-step losses, per-step device-synced seconds (timed runs),
-    EpochResult, (val AP, val AUC) or None, final state, final params)."""
+    loop.evaluate when `val` = (batches, negatives) is given (its seconds
+    device-synced). With `capture` the steps are the ones users get (a
+    CUDA graph a batch shape, train/capture.py); without it they run
+    eagerly, as the comparisons with the plain versions and the probes of
+    kernel inputs need (a replay calls no wrapper). Returns a `_Run`."""
     import torch
     from repro_torch.train import loop, pipeline
     params, opt_state, state = _clone(*start)
-    step = pipeline.make_train_step(cfg, opt)
-    losses, secs = [], []
+    step = pipeline.make_train_step(cfg, opt, capture=capture)
+    eval_step = loop.make_eval_step(cfg, capture=capture)
+    losses, secs, logits = [], [], []
 
     def recorded(*a):
         if timed:
@@ -1563,18 +1611,58 @@ def _run_train(cfg, opt, start, batches, steps, negs, val, dst_range, timed):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         losses.append(out[-1]["loss"])
+        logits.append((out[-1]["logit_p"], out[-1]["logit_n"]))
         return out
+
+    # run_epoch finds a pipelined step's snapshot buffers through it
+    recorded.__wrapped__ = step
 
     params, opt_state, state, res = pipeline.run_epoch(
         params, opt_state, state, batches[:steps + 1], cfg, recorded, None,
         dst_range, negatives=negs[:steps])
-    ev = None
+    ev, eval_s = None, []
     if val is not None:
-        _, vap, vauc = loop.evaluate(params, state, val[0], cfg,
-                                     loop.make_eval_step(cfg), None,
-                                     dst_range, negatives=val[1])
-        ev = (vap, vauc)
-    return [float(x) for x in losses], secs, res, ev, state, params
+        ev = _timed_evaluate(cfg, params, state, val, eval_step, dst_range,
+                             eval_s)
+    return _Run([float(x) for x in losses], secs, logits, res, ev, eval_s,
+                params, opt_state, state, step, eval_step)
+
+
+def _timed_evaluate(cfg, params, state, val, eval_step, dst_range, secs):
+    """loop.evaluate on `val` = (batches, negatives); its device-synced
+    seconds go into `secs`. Returns (val AP, val AUC)."""
+    import torch
+    from repro_torch.train import loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, vap, vauc = loop.evaluate(params, state, val[0], cfg, eval_step,
+                                 None, dst_range, negatives=val[1])
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    return vap, vauc
+
+
+def _run_diff(a, b):
+    """The largest absolute difference of two `_Run`s: losses, logits,
+    memory table, optimizer moments, parameters and val AP."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    amax = lambda x, y: float((x.float() - y.float()).abs().max())
+    require(len(a.losses) == len(b.losses), "runs of different lengths")
+    d = {"loss": max(abs(x - y) for x, y in zip(a.losses, b.losses)),
+         "logits": max(max(amax(p, q), amax(n, m))
+                       for (p, n), (q, m) in zip(a.logits, b.logits)),
+         "table": amax(a.state["memory"].mem, b.state["memory"].mem),
+         "moments": max(amax(x, y) for x, y in zip(
+             tree_leaves(a.opt_state), tree_leaves(b.opt_state))),
+         "params": max(amax(x, y) for x, y in zip(
+             tree_leaves(a.params), tree_leaves(b.params)))}
+    if a.ev is not None:
+        d["val_ap"] = abs(a.ev[0] - b.ev[0])
+    require(all(bool(torch.isfinite(x.float()).all())
+                for x in (a.state["memory"].mem, b.state["memory"].mem)),
+            "a memory table is not finite")
+    return d
 
 
 @contextlib.contextmanager
@@ -1613,7 +1701,7 @@ def _profile_train(label, cfg, opt, start, batches, negs, n):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import pipeline
-    step = pipeline.make_train_step(cfg, opt)
+    step = pipeline.make_train_step(cfg, opt, capture=False)
     carry = step(*_carry(cfg, start), batches[0], batches[1], negs[0])[:-1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1641,8 +1729,10 @@ def _step_vs_plain(cfg, opt, start, batches, negs, steps, other,
     from repro_torch.train import pipeline
     from repro_torch.utils.tree import tree_leaves
     carry = _carry(cfg, start)
-    k_step = k_step or pipeline.make_train_step(cfg, opt)
-    p_step = pipeline.make_train_step(other, opt)
+    # eager: every step starts from a copy of the carry, which a graph
+    # would be captured anew for
+    k_step = k_step or pipeline.make_train_step(cfg, opt, capture=False)
+    p_step = pipeline.make_train_step(other, opt, capture=False)
     amax = lambda t: float(t.abs().max())
     rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
     names = _leaf_names(start[0])
@@ -1678,6 +1768,65 @@ def _step_vs_plain(cfg, opt, start, batches, negs, steps, other,
     return worst
 
 
+def _captured_run(label, cfg, opt, start, batches, negs, val, dst_range,
+                  counts, eager, windows):
+    """The epoch (and `evaluate`) of `eager`, an eager timed `_Run`, again
+    as users run them: each step a CUDA graph's replay (train/capture.py).
+    The train and eval steps must report `captured`, and the launch
+    counts must equal the eager run's `counts` (a replay adds its graph's
+    census). Returns events/s, step ms and the seconds of two `evaluate`
+    calls of both (the captured side's first captures);
+    `windows` gets a profiler window of WINDOW_STEPS more steps of each
+    (the busy share), each on its own run's step and carry."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    steps = len(eager.losses)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    cap = _run_train(cfg, opt, start, batches, steps, negs, val, dst_range,
+                     True, capture=True)
+    got = ops.launch_counts()
+    require(cap.step.captured and (val is None or cap.eval_step.captured),
+            f"{label}: train step captured {cap.step.captured} "
+            f"({cap.step.eager_reason}), eval step {cap.eval_step.captured} "
+            f"({cap.eval_step.eager_reason})")
+    require(got == counts, f"{label}: captured launches {got} against the "
+            f"eager run's {counts}")
+    if val is not None:
+        # `evaluate` again on each side: the captured one's first call
+        # captured its graph
+        for run in (cap, eager):
+            _timed_evaluate(cfg, run.params, run.state, val, run.eval_step,
+                            dst_range, run.eval_s)
+    b = batches[0].src.shape[0]
+    rate = lambda r: (steps - 1) * b / sum(r.secs[1:])
+    out = {"train_captured": cap.step.captured,
+           "eval_captured": cap.eval_step.captured,
+           "first_step_ms": cap.secs[0] * 1e3,
+           "step_ms_median": float(np.median(cap.secs[1:])) * 1e3,
+           "eager_step_ms_median": float(np.median(eager.secs[1:])) * 1e3,
+           "train_events_per_s": rate(cap),
+           "eager_train_events_per_s": rate(eager),
+           "eval_s": cap.eval_s, "eager_eval_s": eager.eval_s}
+    log(f"[{label}] captured / eager: {json.dumps(out)}")
+    n = min(WINDOW_STEPS, steps - 1)
+    for side, run in (("captured", cap), ("eager", eager)):
+        windows.append((f"{label}-{side}", functools.partial(
+            _window_steps, cfg, run, batches, negs, n), f"{n} train steps"))
+    return out
+
+
+def _window_steps(cfg, run, batches, negs, n):
+    """`n` more train steps of `run`'s step on its carry (a pipelined
+    step's snapshot refilled in its own buffers: the graph's)."""
+    carry = (run.params, run.opt_state, run.state)
+    if cfg.pipeline_depth:
+        carry += (run.step.snapshot(run.state["memory"]),)
+    for i in range(1, n + 1):
+        carry = run.step(*carry, batches[i], batches[i + 1], negs[i])[:-1]
+
+
 def _leaf_names(tree, path=""):
     """'/'-joined key paths of the leaves, in tree_leaves order."""
     if isinstance(tree, dict):
@@ -1688,7 +1837,7 @@ def _leaf_names(tree, path=""):
 
 def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                 n_batches, expect, oracle_steps=None, capture=(),
-                profile=0, against=None, noise_floor=False):
+                profile=0, against=None, noise_floor=False, windows=None):
     """Train one epoch of `n_batches` temporal batches (then evaluate on
     `val_s` unless it is None) through the kernels, counting launches;
     then the same from the same start and negatives through the plain
@@ -1699,9 +1848,11 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     the size of a kernel's rounding (`_nudged_gaps`). The
     memory stage's kernel (`memory_stage_kernel`) must launch exactly once
     a train and an evaluation step, and on the pipelined schedule
-    (cfg.pipeline_depth >= 1) `pres_predict` once a train step. Returns
-    (launch counts, the largest inputs of the kernels in `capture`,
-    summary)."""
+    (cfg.pipeline_depth >= 1) `pres_predict` once a train step. These
+    runs are eager (capture=False). With `windows` (a list) the epoch and
+    `evaluate` also run as users get them, captured (`_captured_run`), and
+    the list gets a profiler window of each side. Returns (launch counts,
+    the largest inputs of the kernels in `capture`, summary)."""
     import numpy as np
     import torch
     from repro_torch.graph.negatives import sample_negatives
@@ -1727,12 +1878,14 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     # at the first step only, which events/s and the median step leave out
     with Capture(names=[n for n in capture if n == "gru_cell"],
                  latest=False) as cap:
-        losses, secs, res, ev, state, params_f = _run_train(
-            cfg, opt, start, batches, steps, negs, val, dst_range, True)
+        eager = _run_train(cfg, opt, start, batches, steps, negs, val,
+                           dst_range, True)
         torch.cuda.synchronize()
     counts = ops.launch_counts()
+    losses, secs, res, ev, state = (eager.losses, eager.secs, eager.res,
+                                    eager.ev, eager.state)
     inputs = dict(cap.best)
-    inputs.update(_probe(cfg, capture, params_f, state, batches[-1],
+    inputs.update(_probe(cfg, capture, eager.params, state, batches[-1],
                          negs[-1]))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     check_launches(label, counts, expect)
@@ -1760,8 +1913,12 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                "train_ap": res.ap, "peak_mem_mb": peak_mb,
                "first_losses": losses[:3]}
     if ev is not None:
-        summary.update(val_ap=ev[0], val_auc=ev[1])
+        summary.update(val_ap=ev[0], val_auc=ev[1], eval_s=eager.eval_s)
     log(f"[{label}] {json.dumps(summary)}")
+    if windows is not None:
+        summary["captured"] = _captured_run(
+            label, cfg, opt, start, batches, negs, val, dst_range, counts,
+            eager, windows)
 
     # free-running: the same epoch from the same start and negatives
     # through the kernels again and through the plain versions. Their
@@ -1774,12 +1931,28 @@ def train_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     n_free = oracle_steps or steps
     free_val = val if oracle_steps is None else None
     with _deterministic():
-        k_losses, _, k_res, k_ev, k_state, _ = _run_train(
-            cfg, opt, start, batches, n_free, negs, free_val, dst_range,
-            False)
-        o_losses, _, o_res, o_ev, o_state, _ = _run_train(
-            o_cfg, opt, start, batches, n_free, negs, free_val, dst_range,
-            False)
+        k_run = _run_train(cfg, opt, start, batches, n_free, negs, free_val,
+                           dst_range, False)
+        o_run = _run_train(o_cfg, opt, start, batches, n_free, negs,
+                           free_val, dst_range, False)
+        if windows is not None:
+            # captured, against the eager run just made: the same bits
+            c_run = _run_train(cfg, opt, start, batches, n_free, negs,
+                               free_val, dst_range, False, capture=True)
+            same = _run_diff(c_run, k_run)
+            summary["captured"]["vs_eager"] = same
+            log(f"[{label}] captured vs capture=False, deterministic "
+                f"({n_free} steps{' + evaluate' if free_val else ''}): "
+                f"{json.dumps(same)}")
+            require(c_run.step.captured and all(
+                v == 0.0 for v in same.values()),
+                f"{label}: the captured run differs from the eager one "
+                f"{same} (captured {c_run.step.captured}, "
+                f"{c_run.step.eager_reason})")
+        k_losses, k_res, k_ev, k_state = (k_run.losses, k_run.res, k_run.ev,
+                                          k_run.state)
+        o_losses, o_res, o_ev, o_state = (o_run.losses, o_run.res, o_run.ev,
+                                          o_run.state)
         # teacher-forced: every step from the same state, held tightly
         per_step = (_step_vs_plain(cfg, opt, start, batches, negs, steps,
                                    o_cfg)
@@ -1863,8 +2036,9 @@ def _nudged_gaps(cfg, opt, start, batches, steps, negs, val, dst_range,
     gaps = {"first_losses": 0.0, "train_ap": 0.0, "val_ap": 0.0}
     for eps in (1e-7, -1e-7, 1e-6, -1e-6):
         with _nudge_table(eps):
-            n_losses, _, n_res, n_ev, _, _ = _run_train(
-                cfg, opt, start, batches, steps, negs, val, dst_range, False)
+            run = _run_train(cfg, opt, start, batches, steps, negs, val,
+                             dst_range, False)
+        n_losses, n_res, n_ev = run.losses, run.res, run.ev
         gaps["first_losses"] = max([gaps["first_losses"]] + [
             abs(a - b) / max(abs(b), 1e-12)
             for a, b in zip(n_losses[:3], losses[:3])])
@@ -1916,18 +2090,35 @@ def _probe(cfg, names, params, state, batch, neg):
     return best
 
 
-def cli_phase(label, argv, expect):
+def cli_phase(label, argv, expect, captured=True):
     """`python -m repro_torch.launch.train` with `argv` on the card (its
-    default device), one epoch; its epoch line is printed by the CLI."""
+    default device), one epoch; its epoch line is printed by the CLI. With
+    `captured` the run also writes a run-log (--metrics-out), whose epoch
+    record must say that the train and eval steps ran captured (a CUDA
+    graph a step shape), as users get them."""
+    import tempfile
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
+    from repro_torch.obs import sink
     ops.reset_launch_counts()
-    hist = train_cli.main(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        runlog = pathlib.Path(tmp) / "train.jsonl"
+        hist = train_cli.main(argv + (["--metrics-out", str(runlog)]
+                                      if captured else []))
+        recs = sink.read_runlog(runlog) if captured else []
     check_launches(label, ops.launch_counts(), expect)
     h = hist[-1]
     require(len(hist) == 1 and np.isfinite(h["loss"])
             and 0.0 <= h["val_ap"] <= 1.0, f"{label}: bad history {hist}")
+    if captured:
+        ep = next(r for r in recs if r["kind"] == "epoch")
+        got = {k: ep.get(k) for k in ("train_captured", "train_eager_reason",
+                                      "eval_captured", "eval_eager_reason")}
+        log(f"[{label}] {json.dumps(got)}")
+        require(got["train_captured"] is True
+                and got["eval_captured"] is True,
+                f"{label}: the run-log's epoch record says {got}")
     return h
 
 
@@ -2050,7 +2241,8 @@ def _epoch(engine, cfg, opt, carry, batches, gen, dst_range):
     t0 = time.perf_counter()
     if engine is None:
         out = loop.run_epoch(*carry, batches, cfg,
-                             loop.make_train_step(cfg, opt), gen, dst_range)
+                             loop.make_train_step(cfg, opt, capture=False),
+                             gen, dst_range)
     else:
         out = engine.run_epoch(*carry, batches, gen, dst_range)
     torch.cuda.synchronize()
@@ -2067,7 +2259,7 @@ def _macro_vs_lag_one(cfg, opt, dst_range, worst):
     from repro_torch.graph.negatives import sample_negatives
     from repro_torch.train import loop
     from repro_torch.utils.tree import tree_leaves
-    step = loop.make_train_step(cfg, opt)
+    step = loop.make_train_step(cfg, opt, capture=False)
     amax = lambda t: float(t.abs().max())
     rel = lambda a, b, floor: amax(a - b) / max(floor, amax(b))
 
@@ -2262,7 +2454,7 @@ def production_scan_phase(label, cfg, train_s, dst_range, dev, *,
                                    dst_range)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     lag = loop.run_epoch(*_clone(*start), batches[:4], cfg,
-                         loop.make_train_step(cfg, opt),
+                         loop.make_train_step(cfg, opt, capture=False),
                          torch.Generator(dev).manual_seed(0), dst_range)[-1]
     got, want = res.obs["series"]["loss"][:3], lag.obs["series"]["loss"]
     rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want)]
@@ -2323,13 +2515,15 @@ def store_phase(label, cfg, dev, *, n_events, batch_size, n_batches,
     return summary
 
 
-def _shard_run(cfg, n, dev, opt, batches, negs, val, dst_range, engine):
+def _shard_run(cfg, n, dev, opt, batches, negs, val, dst_range, engine,
+               capture=True):
     """One epoch at `n` shards (all on `dev`) from the seed's parameters
     and a fresh state, then `evaluate`; returns (per-step losses,
     EpochResult, (val AP, val AUC), natural-layout state, launch counts,
-    seconds, scan engine or None). The scan engine draws its negatives in
-    the step from a generator seeded as the loop's draws were (the same
-    draws)."""
+    seconds, the scan engine or the train step). The scan engine draws its
+    negatives in the step from a generator seeded as the loop's draws were
+    (the same draws). The steps are captured (one card holds every shard)
+    unless `capture` is False; the eval step must report `captured` then."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import mdgnn
@@ -2348,26 +2542,28 @@ def _shard_run(cfg, n, dev, opt, batches, negs, val, dst_range, engine):
             return out
         return run
 
-    eng = None
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     if engine == "scan":
-        eng = scan.ScanEngine(c, opt, step_hook=recorded)
+        eng = scan.ScanEngine(c, opt, step_hook=recorded, capture=capture)
         params, _, state, res = eng.run_epoch(
             params, opt.init(params), state, batches,
             torch.Generator(dev).manual_seed(0), dst_range)
     else:
+        eng = pipeline.make_train_step(c, opt, capture=capture)
         params, _, state, res = pipeline.run_epoch(
-            params, opt.init(params), state, batches, c,
-            recorded(pipeline.make_train_step(c, opt)), None, dst_range,
-            negatives=negs)
-    _, vap, vauc = loop.evaluate(params, state, val[0], c,
-                                 loop.make_eval_step(c), None, dst_range,
-                                 negatives=val[1])
+            params, opt.init(params), state, batches, c, recorded(eng), None,
+            dst_range, negatives=negs)
+    eval_step = loop.make_eval_step(c, capture=capture)
+    _, vap, vauc = loop.evaluate(params, state, val[0], c, eval_step, None,
+                                 dst_range, negatives=val[1])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    require(eval_step.captured == (capture and dev.type == "cuda"),
+            f"{n} shards: the eval step captured {eval_step.captured} "
+            f"({eval_step.eager_reason})")
     if n > 1:
         state = routing.unshard_state(c, state)
     losses = [float(x) for x in torch.cat([x.reshape(-1) for x in losses])]
@@ -2378,7 +2574,7 @@ def _natural_step(cfg, opt, mesh):
     """The train step of sharded `cfg` on a natural-layout carry: the
     state sharded on `mesh` before the step, unsharded after it."""
     from repro_torch.train import pipeline, routing
-    step = pipeline.make_train_step(cfg, opt)
+    step = pipeline.make_train_step(cfg, opt, capture=False)
 
     def run(params, opt_state, state, *rest):
         out = step(params, opt_state,
@@ -2414,8 +2610,9 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
     count of `shards` (the first 1) from the same parameters, state and
     negatives, the path's kernels launched and no other, the memory
     stage's kernel n times a step (memory_update_table; once for the cell
-    kernels), on the pipelined schedule pres_predict once a step, the scan
-    engine captured on the card. Each shard count is held to
+    kernels), on the pipelined schedule pres_predict once a step, every
+    step captured on the card (the lag-one, pipelined and eval steps, the
+    scan engine's macros). Each shard count is held to
     one shard's run as the train phases hold two routes: every step from
     the SAME carry (the n = 1 run's, sharded for the step and unsharded
     after it) within STEP_TOL (loss and memory table 1e-5; not for the
@@ -2458,10 +2655,9 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
             if cfg.pipeline_depth:
                 require(counts["pres_predict"] == steps,
                         f"{label}-{n}: pres_predict {counts['pres_predict']}")
-            if eng is not None:
-                require(eng.captured == (dev.type == "cuda"),
-                        f"{label}-{n}: captured {eng.captured} on "
-                        f"{dev.type} ({eng.eager_reason})")
+            require(eng.captured == (dev.type == "cuda"),
+                    f"{label}-{n}: captured {eng.captured} on "
+                    f"{dev.type} ({eng.eager_reason})")
             require(np.isfinite(losses).all() and len(losses) == steps
                     and res.route_overflow == 0,
                     f"{label}-{n}: losses {losses[:3]}.., overflow "
@@ -2471,7 +2667,7 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                 "train_ap": res.ap, "val_ap": ev[0], "loss": res.loss,
                 "seconds": secs, "ms_per_step": secs / calls * 1e3,
                 "launches": {k: v for k, v in counts.items() if v},
-                "captured": None if eng is None else eng.captured}
+                "captured": eng.captured}
         floor = {"first_losses": 0.0, "train_ap": 0.0, "val_ap": 0.0}
         if noise_floor:
             b_losses, b_res, b_ev, _ = runs[1]
@@ -2479,7 +2675,7 @@ def shard_phase(label, cfg, train_s, val_s, dst_range, dev, *, batch_size,
                 with _nudge_table(eps):
                     losses, res, ev, _, _, _, _ = _shard_run(
                         cfg, 1, dev, opt, batches, negs, val, dst_range,
-                        engine)
+                        engine, capture=False)
                 floor["first_losses"] = max([floor["first_losses"]] + [
                     abs(a - b) / max(abs(b), 1e-12)
                     for a, b in zip(losses[:3], b_losses[:3])])
@@ -2559,7 +2755,8 @@ def shard_production_phase(label, cfg, train_s, dst_range, dev, *,
     carry = _clone(*start)
     carry = carry[:2] + (routing.shard_state(
         c, carry[2], routing.get_mesh(n_shards, dev)),)
-    step = loop.make_train_step(c, opt)
+    # eager, as the step ms of earlier runs were taken
+    step = loop.make_train_step(c, opt, capture=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2580,7 +2777,7 @@ def shard_production_phase(label, cfg, train_s, dst_range, dev, *,
     losses = [float(x) for x in losses]
     one = dataclasses.replace(cfg, n_shards=1)
     carry1, want = _clone(*start), []
-    step1 = loop.make_train_step(one, opt)
+    step1 = loop.make_train_step(one, opt, capture=False)
     for i in range(3):
         *carry1, m = step1(*carry1, batches[i], batches[i + 1], negs[i])
         want.append(float(m["loss"]))
@@ -2623,7 +2820,8 @@ def bf16_phase(label, cfg, train_s, dst_range, dev, *, batch_size,
     opt = adamw(1e-3)
     params = mdgnn.init_params(c, torch.Generator().manual_seed(0), dev)
     carry = (params, opt.init(params), mdgnn.init_state(c, dev))
-    step = loop.make_train_step(c, opt)
+    # eager: `Capture` sees the wrapper's calls
+    step = loop.make_train_step(c, opt, capture=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2691,7 +2889,7 @@ def _spec_step_pair(cfg, opt, spec, mesh, carry, args, kw=None):
     if cfg.scan_chunk > 1:
         single = scan.make_macro_step(cfg, opt, (0, cfg.n_nodes))
     else:
-        single = pipeline.make_train_step(cfg, opt)
+        single = pipeline.make_train_step(cfg, opt, capture=False)
     mine = _clone(*carry[:3], *carry[3:])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2846,7 +3044,8 @@ def cli_obs_phase(label, card, expect, serve_expect):
         hist = cli_phase(f"{label}-train", model + [
             "--event-store", str(tmp / "store"), "--epochs", "1",
             "--scan-chunk", "8", "--metrics-out", str(tmp / "train.jsonl"),
-            "--trace-dir", str(tmp / "trace"), "--trace-steps", "4"], expect)
+            "--trace-dir", str(tmp / "trace"), "--trace-steps", "4"], expect,
+            captured=False)
         ops.reset_dispatch_log()
         ops.reset_launch_counts()
         serve_cli.main(["--dataset", "wiki-small"] + model + [
@@ -2875,6 +3074,10 @@ def cli_obs_phase(label, card, expect, serve_expect):
     require(all(len(v) == ep["steps"] for v in ep["series"].values())
             and ep["steps"] > 0 and ep.get("scan_captured") is True,
             f"{label}: the epoch's series do not have one entry a step")
+    require(ep.get("train_captured") is True
+            and ep.get("eval_captured") is True,
+            f"{label}: the epoch record says train captured "
+            f"{ep.get('train_captured')}, eval {ep.get('eval_captured')}")
     rec = sv["serve"]
     require(sum(rec["ingest_hist"]["counts"]) == rec["ingest_hist"]["n"] > 0
             and sum(rec["query_hist"]["counts"]) == rec["query_hist"]["n"]
@@ -4027,6 +4230,53 @@ PHASES = ("edge", "serve-config", "serve-production", "serve-config-apan",
               "spec-zoo-fsdp", "dryrun", "cli-zoo", "autotune")
 
 
+# calls of each launch-floor window (`floor_windows`)
+FLOOR_CALLS = 200
+
+
+def floor_windows(windows, captured, dev):
+    """Rows 5 and 8 (pres_predict, pres_filter) run about a microsecond on
+    the device. Add to `windows` FLOOR_CALLS calls of each on its CONFIG
+    inputs and of a one-element `torch.add`, the floor that every launch
+    pays, so their device time a call comes from the session that traces
+    the train phases (on the H100, later per-call sessions of
+    `device_ms` have lost kernel records, a few a session)."""
+    import torch
+    from repro_torch.kernels import ops
+    x = torch.ones(1, device=dev)
+    runs = {"torch.add": lambda: torch.add(x, x)}
+    for name in ("pres_predict", "pres_filter"):
+        if "config" in captured.get(name, {}):
+            _, a, kw = captured[name]["config"][0][name]
+            copies = [t.clone() for t in a]
+            runs[name] = functools.partial(ops.dispatch, name, *copies,
+                                           mode="compiled", **kw)
+    for name, run in runs.items():
+        def repeat(run=run):
+            for _ in range(FLOOR_CALLS):
+                run()
+        windows.append((f"launch-{name}", repeat,
+                        f"{FLOOR_CALLS} calls of {name}"))
+
+
+def launch_floor(dev):
+    """The floor every launch pays, beside rows 5 and 8: a one-element
+    `torch.add`'s CUDA-event time around the Python call (`ms`, the host's
+    work a launch included) and, from `floor_windows`' session, its and
+    each row's kernel's device time a call."""
+    import torch
+    x = torch.ones(1, device=dev)
+    out = {"launch_floor_ms": time_ms(lambda: torch.add(x, x))}
+    per_call = lambda name: (PROFILES[f"launch-{name}"]["busy_ms"]
+                             / FLOOR_CALLS if f"launch-{name}" in PROFILES
+                             else None)
+    out["launch_floor_device_ms"] = per_call("torch.add")
+    for name in ("pres_predict", "pres_filter"):
+        out[f"{name}_session_device_ms"] = per_call(name)
+    log(f"[launch-floor] one-element torch.add: {json.dumps(out)}")
+    return out
+
+
 def kernel_row(name, spec, phase, inputs, counts, row_name=None):
     """Check the kernel on the inputs its phase captured, time it, its
     plain version and (where one exists) the library yardstick, and set
@@ -4284,16 +4534,23 @@ def main(argv=None):
     train_s, val_s, _ = wiki.chronological_split()
     head = stream.slice(0, 41_000) if stream is not None else None
     train_sum = {}
+    # the profiler windows of the captured train phases and the scan
+    # phases, traced in ONE session (`_profile_windows`), the process's
+    # first, after the last of those phases
+    windows, compared = [], []
 
     def train(label, c, phase, expect, capture=(), against=None,
-              noise_floor=False):
+              noise_floor=False, captured=False):
         prod = phase == "production"
         counts, inputs, train_sum[label] = timed(
             label, train_phase, label, c, head if prod else train_s,
             None if prod else val_s, s_dst if prod else wiki_dst, dev,
             batch_size=1000 if prod else 500, n_batches=41 if prod else None,
             expect=expect, oracle_steps=3 if prod else None, capture=capture,
-            profile=args.profile, against=against, noise_floor=noise_floor)
+            profile=args.profile, against=against, noise_floor=noise_floor,
+            windows=windows if captured else None)
+        if captured:
+            compared.append(label)
         keep(capture, phase, inputs, counts)
         if "memory_update" in capture:
             # the dense op on this phase's occurrences, counted on its own
@@ -4308,9 +4565,9 @@ def main(argv=None):
     rnn_path = ("pres_filter", "embed_attn")
     if "train-config" in only:
         train("train-config-pres", cfg, "config", pres_path,
-              capture=("memory_update",))
+              capture=("memory_update",), captured=True)
         train("train-config-std", rp(cfg, use_pres=False), "config",
-              std_path, capture=("gru_cell",))
+              std_path, capture=("gru_cell",), captured=True)
     cli = ["--dataset", "wiki-small", "--model", "tgn", "--use-kernels",
            "--epochs", "1"]
 
@@ -4323,25 +4580,26 @@ def main(argv=None):
         cli_run("cli-std", [], std_path)
     if "train-production" in only:
         train("train-production-pres", pcfg, "production", pres_path,
-              capture=("memory_update",))
+              capture=("memory_update",), captured=True)
         train("train-production-std", rp(pcfg, use_pres=False),
               "production", std_path, capture=("gru_cell",))
     if "train-config-pipe" in only:
         train("train-config-pipe-d1", rp(cfg, pipeline_depth=1), "config",
-              pipe_path)
+              pipe_path, captured=True)
         train("train-config-pipe", rp(cfg, **pipe), "config", pipe_path,
-              capture=("pres_predict",))
+              capture=("pres_predict",), captured=True)
     if "train-config-dense" in only:
         train("train-config-dense", rp(cfg, **dense), "config", na_path,
-              capture=("neighbor_attn",))
+              capture=("neighbor_attn",), captured=True)
     if "train-config-apan" in only:
-        train("train-config-apan", rp(cfg, **apan), "config", na_path)
+        train("train-config-apan", rp(cfg, **apan), "config", na_path,
+              captured=True)
     if "train-config-rnn" in only:
         train("train-config-rnn", rp(cfg, **rnn), "config", rnn_path,
-              capture=("pres_filter",))
+              capture=("pres_filter",), captured=True)
     if "train-config-rnn-std" in only:
         train("train-config-rnn-std", rp(cfg, use_pres=False, **rnn),
-              "config", ("embed_attn",))
+              "config", ("embed_attn",), captured=True)
     if "train-config-time" in only:
         train("train-config-time", rp(cfg, pres_scale="time",
                                       aggregator="mean", **pipe),
@@ -4353,7 +4611,7 @@ def main(argv=None):
         # that spread (the per-step check, every step from the same state,
         # is unchanged)
         train("train-config-jodie", rp(cfg, **jodie), "config",
-              ("memory_update_table",), noise_floor=True)
+              ("memory_update_table",), noise_floor=True, captured=True)
         train("train-config-jodie-std", rp(cfg, use_pres=False, **jodie),
               "config", ("gru_cell",), noise_floor=True)
     # Sec. 5.3's hashed trackers at |V| / 16 (buckets_ablation.py's point)
@@ -4368,7 +4626,7 @@ def main(argv=None):
         # the reference's plain route: no kernel, held against the kernel
         # route of train-config-pres on the same batches and negatives
         train("train-config-plain", rp(cfg, use_kernels=False), "config",
-              (), against=cfg)
+              (), against=cfg, captured=True)
     if "cli-new" in only:
         cli_run("cli-pipe", ["--pres", "--pipeline-depth", "2"], pipe_path)
         cli_run("cli-dense", ["--pres", "--no-dedup-embed"], na_path)
@@ -4402,19 +4660,18 @@ def main(argv=None):
               na_path, capture=("neighbor_attn",))
     if "train-production-apan" in only:
         train("train-production-apan", rp(pcfg, **apan), "production",
-              na_path)
+              na_path, captured=True)
     if "train-production-rnn" in only:
         train("train-production-rnn", rp(pcfg, **rnn), "production",
               rnn_path, capture=("pres_filter",))
     if "train-production-jodie" in only:
         train("train-production-jodie", rp(pcfg, **jodie), "production",
-              ("memory_update_table",))
+              ("memory_update_table",), captured=True)
     # 11. macro-batch training (T 8), each route's macro captured as a
     # CUDA graph: Alg. 2 (the memory_update_table kernel), Alg. 1 (the
     # gru_cell kernel) and the rnn cell with PRES (pres_filter); one
     # profiler session for all their epochs
     if "train-config-scan" in only:
-        windows = []
         scans = (("train-config-scan", cfg, pres_path),
                  ("train-config-scan-std", rp(cfg, use_pres=False),
                   std_path),
@@ -4424,7 +4681,24 @@ def main(argv=None):
                 label, scan_phase, label, c, train_s, val_s, wiki_dst, dev,
                 batch_size=500, expect=expect, captured=True,
                 windows=windows)
-        timed("train-config-scan-profile", _profile_windows, windows)
+    if windows:
+        floor_windows(windows, captured, dev)
+        timed("train-profile", _profile_windows, windows)
+        windows.clear()
+    for label in compared:
+        # the lag-one (or pipelined) epoch, captured against eager
+        got = train_sum[label]["captured"]
+        for side in ("captured", "eager"):
+            got[f"{side}_busy_share"] = \
+                PROFILES[f"{label}-{side}"]["busy_share"]
+        log(f"[{label}] {card}: captured / eager: events/s "
+            f"{got['train_events_per_s']:.1f} / "
+            f"{got['eager_train_events_per_s']:.1f}, step ms "
+            f"{got['step_ms_median']:.3f} / {got['eager_step_ms_median']:.3f}"
+            f", busy {100 * got['captured_busy_share']:.1f} / "
+            f"{100 * got['eager_busy_share']:.1f} %, evaluate s "
+            f"{got['eval_s']} / {got['eager_eval_s']}")
+    if "train-config-scan" in only:
         for label, _, _ in scans:
             got = train_sum[label]
             for name in ("scan", "lag-one"):
@@ -4601,6 +4875,17 @@ def main(argv=None):
             row = kernel_row(name, spec_, phase, inputs, counts)
             (rows if phase in ("config", "zoo") else
              zoo_rows if phase.startswith("zoo-") else more_rows).append(row)
+    floored = [r for r in rows + more_rows
+               if r["name"] in ("pres_predict", "pres_filter")]
+    if floored:
+        # rows 5 and 8 run about a microsecond on the device: beside them,
+        # the floor that every launch pays
+        floor = launch_floor(dev)
+        for r in floored:
+            r.update(launch_floor_ms=floor["launch_floor_ms"],
+                     launch_floor_device_ms=floor["launch_floor_device_ms"],
+                     session_device_ms=floor[f"{r['name']}_session_device_ms"]
+                     if r["phase"] == "config" else None)
     for phase, (inputs, counts) in bf16_rows.items():
         row = kernel_row("memory_update_table",
                          ops.REGISTRY["memory_update_table"], phase, inputs,

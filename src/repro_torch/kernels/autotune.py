@@ -294,7 +294,8 @@ def emitted_shapes(device, d_mem: int | None = None, batch_size: int = 500,
             params = mdgnn.init_params(c, torch.Generator().manual_seed(seed),
                                        dev)
             state = mdgnn.init_state(c, dev)
-            step = pipeline.make_train_step(c, opt)
+            # eager: a replay calls no wrapper for record_calls to see
+            step = pipeline.make_train_step(c, opt, capture=False)
             carry = (params, opt.init(params), state)
             if c.pipeline_depth:
                 carry += (pipeline.PipelineState.init(state["memory"]),)

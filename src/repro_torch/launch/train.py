@@ -5,7 +5,9 @@
 dense embedding expansion, `--pipeline-depth N` (N >= 1) for the
 staleness-aware pipelined schedule and `--scan-chunk T` (T > 1) for
 macro-batch training (train/scan.py: T lag-one steps a macro step, one
-CUDA graph a macro where the step has no host sync). `--use-kernels`
+CUDA graph a macro). On the card the lag-one, pipelined and eval steps
+each replay a CUDA graph a batch shape, as the JAX CLI jits them
+(train/capture.py); on the CPU they run eagerly. `--use-kernels`
 runs the CUDA kernels; without it the step takes the reference's plain
 route, which launches none, as the JAX CLI runs without Pallas kernels.
 `--csv PATH` trains on a file of the public JODIE format
@@ -217,9 +219,10 @@ def main(argv=None):
     hook = tracer.wrap if tracer else None
     engine = (scan.ScanEngine(cfg, opt, step_hook=hook)
               if cfg.scan_chunk > 1 else None)
-    train_step = None if engine else pipeline.make_train_step(cfg, opt)
-    if hook is not None and train_step is not None:
-        train_step = hook(train_step)
+    # on the card each step replays a CUDA graph a batch shape, as JAX
+    # jits it (train/capture.py); `step.captured` says whether it did
+    step = None if engine else pipeline.make_train_step(cfg, opt)
+    train_step = step if hook is None or step is None else hook(step)
     eval_step = loop.make_eval_step(cfg)
     gen = torch.Generator(device).manual_seed(args.seed)
     # the lag-one loop and scan train from the materialised list; the
@@ -278,6 +281,11 @@ def main(argv=None):
                 rec["gmm_health"] = obs_metrics.gmm_health(state["pres"])
             if engine is not None:
                 rec["scan_captured"] = engine.captured
+            trained = engine or step
+            rec.update(train_captured=trained.captured,
+                       train_eager_reason=trained.eager_reason,
+                       eval_captured=eval_step.captured,
+                       eval_eager_reason=eval_step.eager_reason)
             runlog.write("epoch", **rec)
         print(f"  epoch {epoch}: loss={res.loss:.4f} train_ap={res.ap:.4f} "
               f"val_ap={vap:.4f} val_auc={vauc:.4f} ({res.seconds:.1f}s)")

@@ -232,7 +232,8 @@ def _make_raw_train_step(cfg: MDGNNConfig, opt, mesh=None,
     def pipelined_train_step(params, opt_state, state, pstate, prev_batch,
                              pos, neg):
         from repro_torch.train import pipeline as pipeline_lib
-        fn = pipeline_lib.make_pipelined_train_step(cfg, opt)
+        # the body itself, as for the lag-one step: DTensors, not a graph
+        fn = pipeline_lib.make_pipelined_train_step(cfg, opt, capture=False)
         out = _run_hooked(fn, (params, opt_state, state, pstate, prev_batch,
                                pos, neg))
         return out[:-1] + (_metrics(out[-1]),)

@@ -50,6 +50,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.train import annotate, routing
+from repro_torch.train import capture as capture_lib
 from repro_torch.utils import metrics as metrics_lib
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -335,13 +336,37 @@ def route_metrics(cfg: MDGNNConfig, info) -> dict:
     return out
 
 
-def make_train_step(cfg: MDGNNConfig, opt):
-    """The lag-one train step (JAX `make_train_step`): train_step(params,
-    opt_state, state, prev_batch, pos, neg) -> (params, opt_state, state,
-    metrics), the body of `make_step_body`. With cfg.n_shards > 1 the
-    step first places the event batches on the controller's device
-    (`replicating_inputs`)."""
-    return replicating_inputs(cfg, make_step_body(cfg, opt), n_carry=3)
+def make_train_step(cfg: MDGNNConfig, opt, capture: bool = True):
+    """The lag-one train step (JAX `make_train_step`, which `jax.jit`s
+    with donated carries): train_step(params, opt_state, state,
+    prev_batch, pos, neg) -> (params, opt_state, state, metrics), the body
+    of `make_step_body`. On CUDA it replays a CUDA graph a batch shape
+    (`TrainStep`); on the CPU, or with `capture=False`, it runs the body.
+    With cfg.n_shards > 1 the step first places the event batches on the
+    controller's device (`replicating_inputs`)."""
+    return TrainStep(cfg, replicating_inputs(cfg, make_step_body(cfg, opt),
+                                             n_carry=3), capture)
+
+
+class TrainStep(capture_lib.CapturedStep):
+    """The lag-one step as train/capture.py runs it: the batches (the
+    negatives too, so injected negatives are captured as well) are copied
+    into a graph's static buffers, the parameters, the optimizer state
+    and the model state keep their addresses, and the metrics are clones
+    of the graph's outputs. `captured` / `eager_reason` say how the last
+    call ran."""
+
+    def __call__(self, params, opt_state, state, prev_batch, pos, neg):
+        if self.eager(prev_batch.src.device, self.cfg, state):
+            return self.body(params, opt_state, state, prev_batch, pos, neg)
+
+        def fn(carry, inputs):
+            *carry, metrics = self.body(*carry, *inputs)
+            return carry, metrics
+
+        metrics = self.run("train", fn, (params, opt_state, state),
+                           (prev_batch, pos, neg))
+        return params, opt_state, state, metrics
 
 
 def replicating_inputs(cfg: MDGNNConfig, step, n_carry: int):
@@ -361,11 +386,13 @@ def replicating_inputs(cfg: MDGNNConfig, step, n_carry: int):
     return wrapped
 
 
-def make_eval_step(cfg: MDGNNConfig):
+def make_eval_step(cfg: MDGNNConfig, capture: bool = True):
     """eval_step(params, state, prev_batch, pos, neg) -> (state, logit_p,
     logit_n): the memory update, the neighbour rings and APAN's mailbox,
-    in place, then the logits. The PRES trackers are not updated, as in
-    the JAX eval step."""
+    in place, then the logits (JAX `make_eval_step`, jitted). The PRES
+    trackers are not updated, as in the JAX eval step. On CUDA it replays
+    a CUDA graph a batch shape (`EvalStep`); on the CPU, or with
+    `capture=False`, it runs the body."""
 
     @torch.no_grad()
     def eval_step(params, state, prev_batch, pos, neg):
@@ -387,7 +414,47 @@ def make_eval_step(cfg: MDGNNConfig):
         logit_p, logit_n = endpoint_logits(params, cfg, state2, pos, neg)
         return state2, logit_p, logit_n
 
-    return replicating_inputs(cfg, eval_step, n_carry=2)
+    return EvalStep(cfg, replicating_inputs(cfg, eval_step, n_carry=2),
+                    capture)
+
+
+class EvalStep(capture_lib.CapturedStep):
+    """The eval step as train/capture.py runs it (under no_grad). Its
+    graphs run on a state of the step's own (`own_state`): `evaluate`
+    copies the caller's state into it at every call, so a graph is
+    captured once a run, not once an `evaluate` call."""
+
+    def __init__(self, cfg: MDGNNConfig, body, capture: bool = True):
+        super().__init__(cfg, body, capture)
+        self._own = None
+
+    def own_state(self, state):
+        """This step's state buffer holding a copy of `state` (made on
+        the first call, or when `state`'s tensors differ in number,
+        shape, dtype or device from the buffer's)."""
+        like = lambda t: (t.shape, t.dtype, t.device)
+        new, own = capture_lib.leaves(state), (
+            capture_lib.leaves(self._own) if self._own is not None else [])
+        if len(new) != len(own) or any(like(a) != like(b)
+                                       for a, b in zip(new, own)):
+            self._own = mdgnn.clone_state(state)
+            return self._own
+        with torch.no_grad():
+            for dst, src in zip(own, new):
+                dst.copy_(src)
+        return self._own
+
+    def __call__(self, params, state, prev_batch, pos, neg):
+        if self.eager(prev_batch.src.device, self.cfg, state):
+            return self.body(params, state, prev_batch, pos, neg)
+
+        def fn(carry, inputs):
+            state2, logit_p, logit_n = self.body(*carry, *inputs)
+            return (carry[0], state2), (logit_p, logit_n)
+
+        logit_p, logit_n = self.run("eval", fn, (params, state),
+                                    (prev_batch, pos, neg))
+        return state, logit_p, logit_n
 
 
 @dataclasses.dataclass
@@ -489,8 +556,12 @@ def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
     it was, as with the JAX version's functional state). Returns
     (final eval state, AP, AUC). A split of one batch scores no pair (the
     lag-one pass folds it and stops): AP and AUC are then nan, where the
-    JAX version raises (a short csv's validation split)."""
-    state = mdgnn.clone_state(state)
+    JAX version raises (a short csv's validation split). An `EvalStep`
+    runs on its own state buffer (`EvalStep.own_state`), into which the
+    caller's state is copied; the state returned is a copy of it, which a
+    later call does not overwrite."""
+    own = isinstance(eval_step, EvalStep)
+    state = eval_step.own_state(state) if own else mdgnn.clone_state(state)
     pos_all, neg_all = [], []
     negs = None if negatives is None else iter(negatives)
     it = iter(batches)
@@ -506,6 +577,8 @@ def evaluate(params, state, batches, cfg: MDGNNConfig, eval_step, generator,
         close = getattr(it, "close", None)
         if close is not None:
             close()
+    if own:
+        state = mdgnn.clone_state(state)
     if not pos_all:
         return state, float("nan"), float("nan")
     pos, neg, ap = _logits_ap(pos_all, neg_all)

@@ -28,6 +28,7 @@ snapshot, and only the refresh gathers the live sharded table."""
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 
 import torch
@@ -41,6 +42,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.train import annotate
+from repro_torch.train import capture as capture_lib
 from repro_torch.train import loop as loop_lib
 from repro_torch.train import routing
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -115,15 +117,18 @@ def _count_pending(pending, nodes, mask, n: int) -> None:
     pending.index_add_(0, keys, mask.to(torch.float32))
 
 
-def make_pipelined_train_step(cfg: MDGNNConfig, opt):
-    """The pipelined step (cfg.pipeline_depth >= 1):
+def make_pipelined_train_step(cfg: MDGNNConfig, opt, capture: bool = True):
+    """The pipelined step (cfg.pipeline_depth >= 1; JAX
+    `make_pipelined_train_step`, jitted with donated carries):
     train_step(params, opt_state, state, pstate, prev_batch, pos, neg) ->
     (params, opt_state, state, pstate, metrics).
 
     The lag-one step, except that the embedding reads the filled snapshot
     (`stale_read_table`) with the snapshot's last-update times. The
     metrics carry `staleness`, the batch-writes missing from the snapshot
-    this step's embedding read (in [1, depth])."""
+    this step's embedding read (in [1, depth]). On CUDA the step replays
+    a CUDA graph a batch shape (`PipelinedStep`); on the CPU, or with
+    `capture=False`, it runs the body."""
     if cfg.pipeline_depth < 1:
         raise ValueError("make_pipelined_train_step needs pipeline_depth >= 1"
                          " - depth 0 is loop.make_train_step")
@@ -139,8 +144,10 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
     n = cfg.n_nodes
     sharded = cfg.n_shards > 1
 
-    def train_step(params, opt_state, state, pstate, prev_batch: EventBatch,
-                   pos: EventBatch, neg: EventBatch):
+    def body(params, opt_state, state, pstate, prev_batch: EventBatch,
+             pos: EventBatch, neg: EventBatch, *, staleness: int):
+        """The step up to the snapshot refresh, which does not touch the
+        snapshot's tick: (params, opt_state, state, metrics)."""
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -176,8 +183,6 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
             pen = coherence.coherence_penalty(
                 info["s_prev"], fused, mask=info["selected"] & mask)
             loss = loss + cfg.beta * pen
-        # the snapshot's staleness this step: batch-writes it misses
-        staleness = pstate.tick + 1
         obs = (loop_lib.obs_step_stats(params, cfg, info, fused.detach(),
                                        loss.detach(), pen.detach(), pos,
                                        staleness=staleness)
@@ -192,33 +197,92 @@ def make_pipelined_train_step(cfg: MDGNNConfig, opt):
         aux = {"delta": delta.detach(), "info_nodes": info["nodes"],
                "info_selected": info["selected"], "info_mask": mask}
         loop_lib.maintain_state(cfg, params, state2, aux, prev_batch)
-        # snapshot refresh, in place on the refresh step only
-        if staleness >= cfg.pipeline_depth:
-            live = (routing.natural_memory(cfg, state2["memory"],
-                                           pstate.read_mem.device)
-                    if sharded else state2["memory"])
-            pstate.read_mem.copy_(live.mem)
-            pstate.read_last_update.copy_(live.last_update)
-            pstate.pending.zero_()
-            pstate.tick = 0
-        else:
-            pstate.tick = staleness
         metrics = {"loss": loss.detach(), "coherence_penalty": pen.detach(),
-                   "logit_p": logit_p.detach(), "logit_n": logit_n.detach(),
-                   "staleness": staleness}
+                   "logit_p": logit_p.detach(), "logit_n": logit_n.detach()}
         metrics.update(loop_lib.route_metrics(cfg, info))
         if obs is not None:
             metrics["obs"] = obs
-        return params, opt_state, state2, pstate, metrics
+        return params, opt_state, state2, metrics
 
-    return loop_lib.replicating_inputs(cfg, train_step, n_carry=4)
+    return PipelinedStep(cfg, loop_lib.replicating_inputs(cfg, body,
+                                                          n_carry=4),
+                         capture)
 
 
-def make_train_step(cfg: MDGNNConfig, opt):
+def _advance(cfg: MDGNNConfig, state, pstate: PipelineState,
+             staleness: int) -> None:
+    """The snapshot's schedule after a step, in place: on the refresh
+    step (`staleness` = depth) copies of the live table and its times,
+    the pending counts zeroed and the tick reset; otherwise the tick
+    advanced. The schedule does not depend on the data, so a captured
+    step keeps this outside its graph: three copies on refresh steps."""
+    if staleness >= cfg.pipeline_depth:
+        live = (routing.natural_memory(cfg, state["memory"],
+                                       pstate.read_mem.device)
+                if cfg.n_shards > 1 else state["memory"])
+        pstate.read_mem.copy_(live.mem)
+        pstate.read_last_update.copy_(live.last_update)
+        pstate.pending.zero_()
+        pstate.tick = 0
+    else:
+        pstate.tick = staleness
+
+
+class PipelinedStep(capture_lib.CapturedStep):
+    """The pipelined step as train/capture.py runs it: the carry is the
+    parameters, the optimizer state, the model state and the snapshot's
+    three tensors; the graph is keyed by the batch shapes (and, with
+    cfg.obs_metrics, by the staleness, a constant of the obs vector); the
+    refresh follows the replay (`_advance`). `captured` / `eager_reason`
+    say how the last call ran."""
+
+    def __init__(self, cfg: MDGNNConfig, body, capture: bool = True):
+        super().__init__(cfg, body, capture)
+        self._snapshot: PipelineState | None = None
+
+    def snapshot(self, mem: MemoryState) -> PipelineState:
+        """A fresh snapshot of `mem` in this step's own buffers (made on
+        the first call, or when `mem`'s shapes change), so that the
+        graphs captured on them serve every epoch of a run."""
+        own = self._snapshot
+        if (own is None or own.read_mem.shape != mem.mem.shape
+                or own.read_mem.dtype != mem.mem.dtype
+                or own.read_mem.device != mem.mem.device):
+            self._snapshot = PipelineState.init(mem)
+            return self._snapshot
+        with torch.no_grad():
+            own.read_mem.copy_(mem.mem)
+            own.read_last_update.copy_(mem.last_update)
+            own.pending.zero_()
+        own.tick = 0
+        return own
+
+    def __call__(self, params, opt_state, state, pstate, prev_batch, pos,
+                 neg):
+        staleness = pstate.tick + 1
+        if self.eager(prev_batch.src.device, self.cfg, state):
+            params, opt_state, state, metrics = self.body(
+                params, opt_state, state, pstate, prev_batch, pos, neg,
+                staleness=staleness)
+        else:
+            def fn(carry, inputs):
+                *carry, metrics = self.body(*carry, *inputs,
+                                            staleness=staleness)
+                return carry, metrics
+
+            key = ("pipelined", staleness if self.cfg.obs_metrics else None)
+            metrics = self.run(key, fn, (params, opt_state, state, pstate),
+                               (prev_batch, pos, neg))
+        _advance(self.cfg, state, pstate, staleness)
+        metrics["staleness"] = staleness
+        return params, opt_state, state, pstate, metrics
+
+
+def make_train_step(cfg: MDGNNConfig, opt, capture: bool = True):
     """The lag-one step at depth 0, the pipelined step otherwise."""
     if cfg.pipeline_depth == 0:
-        return loop_lib.make_train_step(cfg, opt)
-    return make_pipelined_train_step(cfg, opt)
+        return loop_lib.make_train_step(cfg, opt, capture)
+    return make_pipelined_train_step(cfg, opt, capture)
 
 
 def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
@@ -227,10 +291,12 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
     """One epoch: `loop.run_epoch` at depth 0; otherwise the pipelined
     schedule from a fresh snapshot of the state's memory. `batches` may be
     a list or an iterator (`EventStream.prefetch_batches`, which is closed
-    when the epoch ends or fails). Negatives are drawn from `generator`
-    unless `negatives` gives one batch per step. Losses and logits stay on
-    the device until the epoch ends; `collect_logits` adds each step's AP
-    (`EpochResult.aps`)."""
+    when the epoch ends or fails). A `PipelinedStep` keeps the snapshot in
+    its own buffers from epoch to epoch (`PipelinedStep.snapshot`), so its
+    graphs serve every epoch; a wrapper of one names it in `__wrapped__`.
+    Negatives are drawn from `generator` unless `negatives` gives one
+    batch per step. Losses and logits stay on the device until the epoch
+    ends; `collect_logits` adds each step's AP (`EpochResult.aps`)."""
     if cfg.pipeline_depth == 0:
         return loop_lib.run_epoch(params, opt_state, state, batches, cfg,
                                   train_step, generator, dst_range,
@@ -240,7 +306,10 @@ def run_epoch(params, opt_state, state, batches, cfg: MDGNNConfig,
     mem = state["memory"]
     if cfg.n_shards > 1:    # the snapshot lives in the natural layout
         mem = routing.natural_memory(cfg, mem)
-    pstate = PipelineState.init(mem)
+    step = inspect.unwrap(train_step,
+                          stop=lambda f: isinstance(f, PipelinedStep))
+    pstate = (step.snapshot(mem) if isinstance(step, PipelinedStep)
+              else PipelineState.init(mem))
     losses, pos_all, neg_all = [], [], []
     obs = obs_metrics.EpochObs()
     negs = None if negatives is None else iter(negatives)

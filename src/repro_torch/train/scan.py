@@ -20,47 +20,39 @@ On the card the step waits for nothing on the host on every route (the
 fused `memory_update_table` kernel with PRES, the GRU cell and kernels;
 the cell route's fixed-shape row writes, `batching.write_selected`,
 otherwise), so the T steps are captured as ONE CUDA graph per (T, b)
-shape, JAX's one dispatch per T batches: the batch is copied
-into static buffers, the graph replays the T forward, backward and AdamW
-steps, and the carry (parameters, optimizer state, model state) keeps its
-addresses (parameters and state are updated in place; the optimizer's
-new state is copied back into the captured one at the end of the graph).
-The generator is registered with the graph, so every replay draws fresh
-negatives in the eager order. A replay calls no kernel wrapper: the
-graph's launches, counted at capture, are added to the counters at every
-replay (`ops.add_launches`), as the serve engine does. The capture is
-preceded by one step on a side stream on copies of the carry (the
-generator restored after it), which prepares cuBLAS, autograd and the
-allocator without touching the carry. A graph stays valid while the
-caller passes back the carry it returned; another carry is captured anew.
-A macro with injected negatives runs eagerly, as does every macro on the
-CPU and with `capture=False`. A sharded state (cfg.n_shards > 1,
-train/routing.py) captures the same way when its shards share one card:
-the routing protocol waits for nothing on the host, and its fused route
-updates every shard's table in place. Shards on several cards run
-eagerly. `ScanEngine.captured` says which ran.
+shape, JAX's one dispatch per T batches: the batch is copied into static
+buffers, the graph replays the T forward, backward and AdamW steps, and
+the carry (parameters, optimizer state, model state) keeps its addresses
+(parameters and state are updated in place; the optimizer's new state is
+copied back into the captured one at the end of the graph). The
+generator is registered with the graph, so every replay draws fresh
+negatives in the eager order. The capture machinery (static buffers, the
+warm-up step on copies of the carry, here a macro of one step, the
+copy-back, the recapture on another carry, the launch census added at
+every replay) is train/capture.py's, which the lag-one, pipelined and
+eval steps share. A macro with injected negatives runs eagerly, as does
+every macro on the CPU and with `capture=False`. A sharded state
+(cfg.n_shards > 1, train/routing.py) captures the same way when its
+shards share one card: the routing protocol waits for nothing on the
+host, and its fused route updates every shard's table in place. Shards
+on several cards run eagerly. `ScanEngine.captured` says which ran.
 
 `cfg.scan_chunk = 1` delegates to `loop.run_epoch` verbatim. `scan_chunk`
 and `pipeline_depth` are mutually exclusive (`check_schedule`)."""
 from __future__ import annotations
 
-import dataclasses
 import functools
 import time
-from typing import Any
 
 import torch
 
 from repro_torch.graph.events import EventBatch, iter_macro_batches
 from repro_torch.graph.negatives import sample_negatives_in
-from repro_torch.kernels import ops as kops
-from repro_torch.models import mdgnn
 from repro_torch.models.mdgnn import MDGNNConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.train import annotate
+from repro_torch.train import capture as capture_lib
 from repro_torch.train import loop as loop_lib
-from repro_torch.train import routing
-from repro_torch.utils.tree import tree_leaves, tree_map
 
 _FIELDS = ("src", "dst", "t", "feat", "mask")
 
@@ -110,37 +102,10 @@ def make_macro_step(cfg: MDGNNConfig, opt, dst_range):
 def _state_leaves(state) -> list:
     """Every tensor of a model state (each shard's of a sharded one), in a
     fixed order."""
-    mem, pr = state["memory"], state["pres"]
-    out = [mem.mem, mem.last_update, *state["neighbors"].values(),
-           pr.n, pr.xi, pr.psi]
-    if "mailbox" in state:
-        out += list(state["mailbox"].values())
-    return [t for x in out for t in (x if isinstance(x, list) else [x])]
+    return capture_lib.leaves(state)
 
 
-def _carry_leaves(params, opt_state, state) -> list:
-    return tree_leaves(params) + tree_leaves(opt_state) + _state_leaves(state)
-
-
-def _clone_carry(params, opt_state, state):
-    return (tree_map(lambda t: t.detach().clone(), params),
-            tree_map(lambda t: t.clone(), opt_state),
-            mdgnn.clone_state(state))
-
-
-@dataclasses.dataclass
-class _Graph:
-    """One captured macro step: the static macro-batch, the graph, its
-    static outputs and launch census, and the carry it was captured on."""
-    macro: EventBatch
-    graph: Any
-    outputs: dict
-    census: dict
-    carry_ptrs: tuple
-    generator: torch.Generator
-
-
-class ScanEngine:
+class ScanEngine(capture_lib.StepGraphs):
     """Epoch runner of macro-batch training. Use like loop.run_epoch:
 
         engine = ScanEngine(cfg, opt)
@@ -159,22 +124,19 @@ class ScanEngine:
     def __init__(self, cfg: MDGNNConfig, opt, step_hook=None,
                  capture: bool = True):
         check_schedule(cfg)
+        super().__init__(capture)
         self.cfg = cfg
         self.opt = opt
         self.step_hook = step_hook
-        self.capture = capture
-        self.captured: bool | None = None
-        self.eager_reason: str | None = None
         self.negatives: list = []
         self._macro_steps: dict = {}
-        self._graphs: dict = {}
-        self._pool = None
 
     # ------------------------------------------------------------------ #
 
     @functools.cached_property
     def _seq_step(self):
-        step = loop_lib.make_train_step(self.cfg, self.opt)
+        step = loop_lib.make_train_step(self.cfg, self.opt,
+                                        capture=self.capture)
         return step if self.step_hook is None else self.step_hook(step)
 
     def _eager_step(self, dst_range):
@@ -183,91 +145,25 @@ class ScanEngine:
                 self.cfg, self.opt, dst_range)
         return self._macro_steps[dst_range]
 
-    def _why_eager(self, macro: EventBatch, state, generator, negatives):
-        if macro.src.device.type != "cuda":
-            return "not on CUDA"
-        if not self.capture:
-            return "capture=False"
-        if negatives is not None:
-            return "negatives injected"
-        if (self.cfg.n_shards > 1
-                and len(set(routing.mesh_of(state))) > 1):
-            return "the shards are on more than one device"
-        default = torch.cuda.default_generators[macro.src.device.index]
-        if (generator is not default and not hasattr(
-                torch.cuda.CUDAGraph, "register_generator_state")):
-            return ("this torch cannot register a generator with a CUDA "
-                    "graph (CUDAGraph.register_generator_state)")
-        return None
-
     def _macro(self, params, opt_state, state, generator, macro, dst_range,
                negatives=None):
-        reason = self._why_eager(macro, state, generator, negatives)
-        if reason is not None:
-            self.captured = False
-            self.eager_reason = reason if macro.src.is_cuda else None
-            return self._eager_step(dst_range)(params, opt_state, state,
-                                               generator, macro, negatives)
-        self.captured = True
-        g = self._graph(params, opt_state, state, generator, macro,
-                        dst_range)
-        for f in _FIELDS:
-            getattr(g.macro, f).copy_(getattr(macro, f))
-        g.graph.replay()
-        kops.add_launches(g.census)
-        return params, opt_state, state, {k: v.clone()
-                                          for k, v in g.outputs.items()}
-
-    def _graph(self, params, opt_state, state, generator, macro, dst_range):
-        """The graph of this (T, b) shape, captured on this carry (again
-        if the carry or the generator is another)."""
-        key = (tuple(macro.src.shape), tuple(macro.feat.shape), dst_range)
-        ptrs = tuple(t.data_ptr()
-                     for t in _carry_leaves(params, opt_state, state))
-        g = self._graphs.get(key)
-        if g is not None and g.carry_ptrs == ptrs and g.generator is generator:
-            return g
-        dev = macro.src.device
         step = self._eager_step(dst_range)
-        static = EventBatch(*(torch.empty_like(getattr(macro, f))
-                              for f in _FIELDS))
-        for f in _FIELDS:
-            getattr(static, f).copy_(getattr(macro, f))
-        # one step on copies of the carry, on a side stream, leaving the
-        # generator and the launch counters as they were
-        rng = generator.get_state()
-        before = kops.launch_census()
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            first = EventBatch(*(getattr(static, f)[:2] for f in _FIELDS))
-            step(*_clone_carry(params, opt_state, state), generator, first)
-        main.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        kops.add_launches(kops.launches_since(before), -1)
-        generator.set_state(rng)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        if generator is not torch.cuda.default_generators[dev.index]:
-            graph.register_generator_state(generator)
-        before = kops.launch_census()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            p2, o2, s2, outputs = step(params, opt_state, state, generator,
-                                       static)
-            # the carry keeps its addresses: whatever the steps returned in
-            # new storage (the optimizer's state) is copied back
-            for old, new in zip(_carry_leaves(params, opt_state, state),
-                                _carry_leaves(p2, o2, s2)):
-                if new.data_ptr() != old.data_ptr():
-                    old.copy_(new)
-        census = kops.launches_since(before)
-        kops.add_launches(census, -1)
-        g = _Graph(static, graph, outputs, census, ptrs, generator)
-        self._graphs[key] = g
-        return g
+        if self.eager(macro.src.device, self.cfg, state, generator,
+                              "negatives injected" if negatives is not None
+                              else None):
+            return step(params, opt_state, state, generator, macro,
+                        negatives)
+
+        def fn(carry, inputs):
+            *carry, metrics = step(*carry, generator, *inputs)
+            return carry, metrics
+
+        # the warm-up step runs a macro of one step
+        first = lambda inputs: (EventBatch(*(getattr(inputs[0], f)[:2]
+                                             for f in _FIELDS)),)
+        metrics = self.run(dst_range, fn, (params, opt_state, state),
+                                   (macro,), generator, warm=first)
+        return params, opt_state, state, metrics
 
     # ------------------------------------------------------------------ #
 
