@@ -1442,24 +1442,41 @@ def _profile(label, eng, stream, lo, ticks, q_src, q_dst, q_t):
 def _profile_prefill(label, dev, seed):
     """torch.profiler over one bf16 prefill of the zoo phase's model, its
     weights and batch drawn again from `seed` (a deferred window holds no
-    phase's weights: gemma3-12b's 47 GB would not fit beside the next)."""
+    phase's weights: gemma3-12b's 47 GB would not fit beside the next),
+    then over one eager bf16 decode step against a cache of S slots (the
+    device work a captured step replays), as "<label>-decode"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.archs.api import get_model
     cfg, _, params, batch = zoo_inputs(label, dev, seed)
     bf = get_model(cfg)
-    with torch.no_grad():
-        bf.prefill(params, batch)
+
+    def window(run):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            bf.prefill(params, batch)
+            out = run()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    del params, batch
+        return out, prof, (time.perf_counter() - t0) * 1e6
+
+    with torch.no_grad():
+        bf.prefill(params, batch)
+        last, prof, wall_us = window(lambda: bf.prefill(params, batch))
+        _report_profile(label, prof, wall_us, "one bf16 prefill")
+        del prof
+        b, s = ZOO[label][1:3]
+        state = bf.init_decode_state(b, s, dev)
+        if bf.encode is not None:
+            state["enc_out"] = bf.encode(params, batch["audio_feats"])
+        tok = last.argmax(-1, keepdim=True)
+        bf.decode_step(params, state, tok, 0)
+        _, prof, wall_us = window(
+            lambda: bf.decode_step(params, state, tok, 1))
+        _report_profile(f"{label}-decode", prof, wall_us,
+                        "one eager bf16 decode step")
+    del params, batch, state
     torch.cuda.empty_cache()
-    _report_profile(label, prof, wall_us, "one bf16 prefill")
 
 
 # the prefix of `_profile_windows`' record_function ranges
@@ -3370,8 +3387,10 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
     that captures the kernels' inputs for their rows), tokens/s and peak
     device memory, the same launches a prefill, flash_attn's all on its
     wgmma route. (3) `decode_steps` greedy decode steps from the
-    prefill's next token against a cache of S slots: ms a step, and no
-    kernel launched. Returns (launch counts of (1), {row key: captured
+    prefill's next token against a cache of S slots, captured (one CUDA
+    graph for every position) and eager from equal states under
+    deterministic algorithms (`decode_zoo`): bit for bit, ms a step on
+    both sides, and no kernel launched. Returns (launch counts of (1), {row key: captured
     inputs}, summary): the row key is the label, and "<label>-local" for
     the first (windowed) flash_attn launch of a phase with windows."""
     import numpy as np
@@ -3465,27 +3484,9 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
         state = bf.init_decode_state(b, s, dev)
         if bf.encode is not None:           # whisper: the encoder's output
             state["enc_out"] = bf.encode(params, batch["audio_feats"])
-        tok = last.argmax(-1, keepdim=True)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        step_ms = []
-        for pos in range(decode_steps):
-            t0 = time.perf_counter()
-            logits, state = bf.decode_step(params, state, tok, pos)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts_dec = ops.launch_counts()
-        require(not any(counts_dec.values()),
-                f"{label}: decode launched a kernel: {counts_dec}")
-        require(tuple(logits.shape) == (b, 1, cfg.vocab)
-                and bool(torch.isfinite(logits).all()),
-                f"{label}: bad decode logits")
-        summary.update(decode_steps=decode_steps, decode_cache=s,
-                       decode_ms_first=step_ms[0],
-                       decode_ms_median=float(np.median(step_ms[1:])),
-                       decode_tokens_per_s=b * 1e3
-                       / float(np.median(step_ms[1:])))
+        first = last.argmax(-1, keepdim=True)
+        summary.update(decode_cache=s, **decode_zoo(
+            label, bf, params, state, first, decode_steps))
         log(f"[{label}] {json.dumps(summary)}")
         if profile:
             DEFERRED_PROFILES.append(functools.partial(
@@ -3493,6 +3494,83 @@ def zoo_phase(label, dev, seed, decode_steps=16, profile=0):
     del params, state
     torch.cuda.empty_cache()
     return counts, inputs, summary
+
+
+def decode_zoo(label, model, params, state, first, steps):
+    """`steps` greedy decode steps from `first` (B, 1), through the
+    captured decode step (`serve.make_decode_step`: one CUDA graph for
+    every position) on `state` and through `capture=False` (the eager
+    body, the position an int) on a copy of it, both under
+    `_deterministic()`: the captured step must have replayed its graph
+    (`captured` true), each step's logits and the final state must be
+    equal bit for bit, and neither side may launch a kernel. Returns each
+    side's ms a step (synced) and their medians over the steps after the
+    first (the captured first step holds the warm-up and the capture),
+    and the device memory each first step took at its peak over what was
+    allocated before it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.train import capture as tcapture
+    twin = tcapture.clone(state)
+    mem = {}
+
+    def run(step, st):
+        tok, logits, ms = first, [], []
+        ops.reset_launch_counts()
+        for pos in range(steps):
+            torch.cuda.synchronize()
+            if not pos:
+                alloc = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lg, st = step(params, st, tok, pos)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+            if not pos:
+                mem[step.capture] = (torch.cuda.max_memory_allocated()
+                                     - alloc) / 1e6
+        return logits, st, ms, ops.launch_counts()
+
+    with _deterministic():
+        captured = serve.make_decode_step(model)
+        got, state, cap_ms, cap_counts = run(captured, state)
+        eager = serve.make_decode_step(model, capture=False)
+        want, twin, eager_ms, eager_counts = run(eager, twin)
+    require(captured.captured is True and eager.captured is False,
+            f"{label}: decode captured {captured.captured} "
+            f"({captured.eager_reason}), eager {eager.captured}")
+    require(cap_counts == eager_counts and not any(cap_counts.values()),
+            f"{label}: decode launched a kernel: captured {cap_counts}, "
+            f"eager {eager_counts}")
+    require(all(tuple(x.shape) == (first.shape[0], 1, model.cfg.vocab)
+                and bool(torch.isfinite(x).all()) for x in got),
+            f"{label}: bad decode logits")
+    diff = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(got, want))
+    a, b = tcapture.leaves(state), tcapture.leaves(twin)
+    same = (all(torch.equal(x, y) for x, y in zip(got, want))
+            and len(a) == len(b)
+            and all(torch.equal(x, y) for x, y in zip(a, b)))
+    log(f"[{label}] decode captured against eager over {steps} steps: "
+        f"logits max|diff| {diff}, logits and state bit-equal {same}; ms a "
+        f"step captured {[round(x, 3) for x in cap_ms]}, eager "
+        f"{[round(x, 3) for x in eager_ms]}; first step's peak MB over "
+        f"the base: captured {mem[True]}, eager {mem[False]}")
+    require(same, f"{label}: the captured decode differs from the eager "
+            f"one (logits {diff})")
+    med = float(np.median(cap_ms[1:]))
+    return {"decode_steps": steps, "decode_captured": captured.captured,
+            "decode_ms": cap_ms, "decode_ms_first": cap_ms[0],
+            "decode_ms_median": med,
+            "decode_tokens_per_s": first.shape[0] * 1e3 / med,
+            "decode_eager_ms": eager_ms,
+            "decode_eager_ms_median": float(np.median(eager_ms[1:])),
+            "decode_capture_peak_mb": mem[True],
+            "decode_eager_peak_mb": mem[False]}
 
 
 # ---------------------------------------------------------------------------
@@ -3542,7 +3620,7 @@ def _train_zoo_inputs(label, dev, seed, dtype):
                                          targets=True)
 
 
-def train_zoo_phase(label, dev, seed):
+def train_zoo_phase(label, dev, seed, profile=0):
     """Zoo training at full width: the published config (remat on), its
     ARCH_OPTIMIZER optimizer at lr 1e-4, random weights and batch from
     `seed`. (1) float32, one loss + gradient from the same parameters and
@@ -3557,7 +3635,9 @@ def train_zoo_phase(label, dev, seed):
     phases). Both under deterministic algorithms. (3)
     the published bfloat16: 1 warm-up and 3 timed steps (median ms,
     tokens/s, peak memory), the same launches a step, flash_attn's on its
-    wgmma route. A deferred profile of one step gives the busy share."""
+    wgmma route. With `profile`, a deferred profile of one step gives the
+    busy share (a minute and a half for the three phases, whose weights it
+    draws again)."""
     import numpy as np
     import torch
     from repro_torch.archs.api import get_model
@@ -3704,8 +3784,9 @@ def train_zoo_phase(label, dev, seed):
     log(f"[{label}] {json.dumps(summary)}")
     del params, st, batch, bf
     torch.cuda.empty_cache()
-    DEFERRED_PROFILES.append(functools.partial(_profile_train_zoo, label,
-                                               dev, seed))
+    if profile:
+        DEFERRED_PROFILES.append(functools.partial(_profile_train_zoo,
+                                                   label, dev, seed))
     return summary
 
 
@@ -3792,18 +3873,29 @@ def train_zoo_reduced_phase(label, dev, seed):
 
 
 def cli_zoo_phase(label, arch, steps):
-    """`python -m repro_torch.launch.serve --zoo <arch>` on the card (its
-    default device): greedy decode of the reduced config, which launches
-    no kernel (the zoo's kernels run in the prefill)."""
+    """`python -m repro_torch.launch.serve --zoo <arch> --metrics-out F`
+    on the card (its default device): greedy decode of the reduced config
+    through the captured decode step, which launches no kernel (the zoo's
+    kernels run in the prefill); its run-log's decode record must say
+    `captured` true."""
+    import tempfile
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import sink
     ops.reset_launch_counts()
-    toks = serve_cli.main(["--zoo", arch, "--steps", str(steps)])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "zoo.jsonl"
+        toks = serve_cli.main(["--zoo", arch, "--steps", str(steps),
+                               "--metrics-out", str(out)])
+        rec = {r["kind"]: r for r in sink.read_runlog(out)}["decode"]
     counts = ops.launch_counts()
     require(not any(counts.values()),
             f"{label}: the zoo decode CLI launched a kernel: {counts}")
     require(tuple(toks.shape) == (2, steps), f"{label}: bad tokens")
-    return {"tokens": toks[0].tolist()}
+    require(rec["captured"] is True, f"{label}: the zoo decode CLI ran "
+            f"eagerly ({rec['eager_reason']})")
+    return {"tokens": toks[0].tolist(), "captured": rec["captured"],
+            "tokens_per_sec": rec["tokens_per_sec"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4368,8 +4460,9 @@ def main(argv=None):
     ap.add_argument("--profile", type=int, default=0, metavar="TICKS",
                     help="also profile TICKS query+fold rounds of each "
                          "serve phase's engine, TICKS train steps of each "
-                         "train phase and one prefill of each zoo phase, "
-                         "after the kernel rows")
+                         "train phase, one prefill and one eager decode "
+                         "step of each zoo phase and one step of each "
+                         "train-zoo phase, after the kernel rows")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the zoo phases' weights and tokens")
     ap.add_argument("--only", default=None,
@@ -4840,7 +4933,7 @@ def main(argv=None):
     for label in TRAIN_ZOO:
         if label in only:
             train_zoo_sum[label] = timed(label, train_zoo_phase, label, dev,
-                                         args.seed)
+                                         args.seed, profile=args.profile)
     if "train-zoo-reduced" in only:
         train_zoo_sum["train-zoo-reduced"] = timed(
             "train-zoo-reduced", train_zoo_reduced_phase,
@@ -4869,6 +4962,7 @@ def main(argv=None):
     # 10. kernels on the inputs their phases handed them: the rows of the
     # CONFIG phases and of ZOO_LINE's in the result line, the others'
     # (PRODUCTION, the other zoo phases) in --out and the log
+    t_rows = time.perf_counter()
     rows, more_rows, zoo_rows = [], [], []
     for name, spec_ in ops.REGISTRY.items():
         for phase, (inputs, counts) in captured.get(name, {}).items():
@@ -4914,9 +5008,12 @@ def main(argv=None):
                 and sorted((r["name"], r["phase"]) for r in zoo_rows)
                 == want_zoo,
                 f"kernel rows for {sorted(r['name'] for r in rows)} only")
+    seconds["kernel-rows"] = round(time.perf_counter() - t_rows, 1)
+    t_profiles = time.perf_counter()
     for run_profile in DEFERRED_PROFILES:
         run_profile()
     DEFERRED_PROFILES.clear()
+    seconds["deferred-profiles"] = round(time.perf_counter() - t_profiles, 1)
     log(f"[seconds] {json.dumps(seconds)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     if args.out:

@@ -10,6 +10,7 @@ Every architecture exposes a `Model`:
     loss_fn(params, batch)       -> (scalar loss, aux dict) [CE + aux]
     init_decode_state(batch_size, cache_len, device=None) -> state
     decode_step(params, state, tokens, pos) -> (logits, state)
+    check_decode_pos(state, pos)  -> None  [decode_step's host checks]
 
 Entry points run on CUDA unless given device="cpu". Serving callers run
 them under `torch.no_grad()`; with grad mode on, every kernel call saves
@@ -143,6 +144,10 @@ class Model:
     extra_inputs: Callable | None = None  # shapes of aux inputs (vlm/audio)
     encode: Callable | None = None        # enc-dec only: the encoder
     state_axes: Callable | None = None    # () -> the decode state's axes
+    # (state, pos: int) -> None: the host checks of decode_step with an
+    # int pos (its ValueErrors), for a caller that passes pos as a device
+    # tensor, which the body does not read on the host
+    check_decode_pos: Callable | None = None
 
     def init(self, gen: torch.Generator | None = None, device=None):
         """The parameters (a nested dict of tensors), drawn from `gen`."""
@@ -227,8 +232,10 @@ def make_embedding(b: ParamBuilder, cfg: ModelConfig):
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
     x = layers.embed(params["embed"], tokens, dtype=cfg.dtype)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
-                            device=x.device)
+    # a fill on the device, not a copy from the host, which a CUDA graph
+    # capture (the decode step's) refuses
+    return x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.dtype,
+                          device=x.device)
 
 
 def lm_logits(params, cfg: ModelConfig, x):

@@ -126,15 +126,29 @@ def build(cfg: ModelConfig) -> Model:
             x = x + layers.mlp(p[f"b{j}"]["mlp"], h, act=cfg.act)
         return x
 
+    # the first global layer of a unit: a position past its cache raises
+    first_global = next((j for j, kind in enumerate(unit)
+                         if kind != "local"), None)
+
+    def check_decode_pos(state, pos):
+        """decode_step's check of an int pos (the global layers')."""
+        if first_global is not None:
+            caches = state if cfg.scan_layers else state["u0"]
+            attn_lib.check_pos(pos,
+                               caches[f"b{first_global}"]["k"].shape[-3])
+
     def decode_step(params, state, tokens, pos):
-        """tokens (B, 1) at position `pos`; the caches in `state` are
+        """tokens (B, 1) at position `pos` (an int, or a 0-d integer
+        tensor read on the device only); the caches in `state` are
         written in place. Returns (logits (B, 1, V), state)."""
         x = base.embed_tokens(params, cfg, tokens)          # (B, 1, d)
         mrope_pos = None
         if cfg.mrope_sections:
             # every coordinate at the token's position, as in JAX
-            mrope_pos = torch.full((x.shape[0], 3, 1), int(pos),
-                                   dtype=torch.int32, device=x.device)
+            mrope_pos = (pos.to(torch.int32).expand(x.shape[0], 3, 1)
+                         if isinstance(pos, torch.Tensor) else
+                         torch.full((x.shape[0], 3, 1), int(pos),
+                                    dtype=torch.int32, device=x.device))
         blocks = base.units(params["blocks"], cfg, n_units)
         for i in range(n_units):
             cache = (unstack(state, i) if cfg.scan_layers
@@ -156,4 +170,5 @@ def build(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, build_params=build_params, forward=forward,
                  prefill=prefill, loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
-                 extra_inputs=extra_inputs, state_axes=state_axes)
+                 extra_inputs=extra_inputs, state_axes=state_axes,
+                 check_decode_pos=check_decode_pos)

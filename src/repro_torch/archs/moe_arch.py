@@ -139,6 +139,13 @@ def build(cfg: ModelConfig) -> Model:
                                          rope_theta=cfg.rope_theta)
         return x + h
 
+    def check_decode_pos(state, pos):
+        """decode_step's check of an int pos (every layer is global)."""
+        caches = (state["dense_0"] if cfg.first_dense else
+                  state["blocks"] if cfg.scan_layers else
+                  state["blocks"]["u0"])
+        attn_lib.check_pos(pos, caches["k"].shape[-3])
+
     def decode_step(params, state, tokens, pos):
         """tokens (B, 1) at position `pos`; the caches in `state` are
         written in place. Returns (logits (B, 1, V), state)."""
@@ -159,4 +166,4 @@ def build(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, build_params=build_params, forward=forward,
                  prefill=prefill, loss_fn=loss_fn,
                  init_decode_state=init_decode_state, decode_step=decode_step,
-                 state_axes=state_axes)
+                 state_axes=state_axes, check_decode_pos=check_decode_pos)

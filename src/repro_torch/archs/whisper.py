@@ -122,17 +122,31 @@ def build(cfg: ModelConfig) -> Model:
                                                 cfg.scan_layers,
                                                 cfg.n_layers)}
 
-    def decode_step(params, state, tokens, pos):
-        """tokens (B, 1) at position `pos`; the caches in `state` are
-        written in place. Returns (logits (B, 1, V), state). Raises
-        ValueError past the position table (JAX's dynamic_slice clamps
-        to its last row)."""
-        pos = int(pos)
+    def _check_table(pos):
         if not 0 <= pos < cfg.max_seq:
             raise ValueError(f"whisper decode: position {pos} is outside "
                              f"the position table (max_seq {cfg.max_seq})")
+
+    def check_decode_pos(state, pos):
+        """decode_step's checks of an int pos, in its order."""
+        _check_table(pos)
+        caches = state["self"] if cfg.scan_layers else state["self"]["u0"]
+        attn_lib.check_pos(pos, caches["k"].shape[-3])
+
+    def decode_step(params, state, tokens, pos):
+        """tokens (B, 1) at position `pos`; the caches in `state` are
+        written in place. Returns (logits (B, 1, V), state). An int pos
+        past the position table raises ValueError (JAX's dynamic_slice
+        clamps to its last row); a 0-d integer tensor pos is read on the
+        device only, and the caller checks it (`check_decode_pos`)."""
+        if isinstance(pos, torch.Tensor):
+            row = params["dec_pos"].index_select(0, pos.reshape(1).long())
+        else:
+            pos = int(pos)
+            _check_table(pos)
+            row = params["dec_pos"][pos:pos + 1]
         x = layers.embed(params["embed"], tokens, dtype=cfg.dtype)
-        x = x + params["dec_pos"][pos:pos + 1].to(cfg.dtype)[None]
+        x = x + row.to(cfg.dtype)[None]
         enc_out = state["enc_out"]
         for i, p in enumerate(base.units(params["dec"], cfg, cfg.n_layers)):
             cache = (unstack(state["self"], i) if cfg.scan_layers
@@ -159,4 +173,4 @@ def build(cfg: ModelConfig) -> Model:
                  prefill=prefill, loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
                  extra_inputs=extra_inputs, encode=encode,
-                 state_axes=state_axes)
+                 state_axes=state_axes, check_decode_pos=check_decode_pos)

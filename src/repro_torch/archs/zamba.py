@@ -148,6 +148,13 @@ def build(cfg: ModelConfig) -> Model:
         h = layers.rmsnorm(sh["ln_mlp"], x)
         return x + layers.mlp(sh["mlp"], h, act=cfg.act)
 
+    def check_decode_pos(state, pos):
+        """decode_step's check of an int pos (the shared attention's)."""
+        if not n_units:
+            return
+        units = state["units"] if stacked else state["units"]["u0"]
+        attn_lib.check_pos(pos, units["cache"]["k"].shape[-3])
+
     def decode_step(params, state, tokens, pos):
         """tokens (B, 1) at position `pos`; the state in `state` is
         written in place. Returns (logits (B, 1, V), state)."""
@@ -166,4 +173,4 @@ def build(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, build_params=build_params, forward=forward,
                  prefill=prefill, loss_fn=base.lm_loss(forward),
                  init_decode_state=init_decode_state, decode_step=decode_step,
-                 state_axes=state_axes)
+                 state_axes=state_axes, check_decode_pos=check_decode_pos)

@@ -24,7 +24,12 @@ without Pallas kernels. `--zoo <arch> --steps N` runs
 the model zoo's greedy decode loop instead (any of `configs.ARCH_IDS`,
 its reduced config, batch 2, a 128-slot cache; whisper's encoder runs
 first on random frame embeddings), as the JAX CLI does; decode runs no
-kernel (the zoo's kernels run in the prefill, `Model.prefill`):
+kernel (the zoo's kernels run in the prefill, `Model.prefill`). On the
+card each step replays one CUDA graph (`make_decode_step`, JAX's
+`jax.jit(model.decode_step)` with a traced position), each token going
+from the argmax into the next step on the device; the line says whether
+it was `captured`, and `--metrics-out FILE` writes it to a JSONL
+run-log:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --zoo zamba2-1.2b \
         --steps 16
@@ -58,6 +63,7 @@ from repro_torch.models.mdgnn import MDGNNConfig, init_params, init_state
 from repro_torch.obs import sink
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import MicroBatcher, ServeEngine, replay
+from repro_torch.train import capture as tcapture
 
 
 def serve_mdgnn(args):
@@ -157,13 +163,68 @@ def serve_mdgnn(args):
     return report
 
 
-def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
+class DecodeStep(tcapture.StepGraphs):
+    """A zoo model's decode step, `step(params, state, tokens, pos: int)
+    -> (logits, state)`, as JAX's `jax.jit(model.decode_step)` runs it
+    with `pos` traced: on the card one CUDA graph for every position of a
+    (batch, state shape), on `train/capture.py::StepGraphs`.
+
+    A call on the card checks `pos` on the host (`Model.check_decode_pos`:
+    the int path's ValueErrors, before anything is written), fills the
+    graph's 0-d int32 position and copies `tokens` into its static inputs,
+    and replays the graph of the state's shapes, captured on the first
+    call for that state; the state is written in place (a state returned
+    in new storage, xLSTM's, is copied back into the caller's inside the
+    graph) and returned, the logits are a copy. The warm-up before a
+    capture runs on a copy of the state only: the parameters, read-only,
+    are not copied (gemma3-12b's float32 weights are 47 GB). Off CUDA, or
+    with `capture=False`, a call runs `model.decode_step` eagerly with the
+    int. `captured` and `eager_reason` are StepGraphs'."""
+
+    def __init__(self, model, capture: bool = True):
+        super().__init__(capture)
+        self.model = model
+
+    def __call__(self, params, state, tokens, pos: int):
+        if self.eager(tokens.device):
+            return self.model.decode_step(params, state, tokens, pos)
+        pos = int(pos)
+        if self.model.check_decode_pos is not None:
+            self.model.check_decode_pos(state, pos)
+        posv = torch.full((), pos, dtype=torch.int32, device=tokens.device)
+        key = tuple(tuple(x.shape) for x in tcapture.leaves(state))
+        logits = self.run(key, self._body, (params, state), (tokens, posv),
+                          warm_carry=_copy_state)
+        return logits, state
+
+    def _body(self, carry, inputs):
+        params, state = carry
+        logits, state = self.model.decode_step(params, state, *inputs)
+        return (params, state), logits
+
+
+def _copy_state(carry):
+    params, state = carry
+    return params, tcapture.clone(state)
+
+
+def make_decode_step(model, capture: bool = True) -> DecodeStep:
+    """The decode step of `model` (a `Model` of `archs/`), captured on the
+    card unless `capture=False` (see DecodeStep)."""
+    return DecodeStep(model, capture)
+
+
+def serve_zoo(arch: str, steps: int, device=None, seed: int = 0,
+              metrics_out=None):
     """Greedy decode of `steps` tokens for a batch of 2 through an arch's
     reduced config, with random parameters from `seed`; an enc-dec arch
     (whisper) first encodes random frame embeddings from the same
-    generator into the decode state, as JAX's `serve_zoo` does. Prints
-    tokens/s and the device. Returns the (2, steps) generated tokens.
-    Raises ValueError when `steps` exceeds the 128-slot cache."""
+    generator into the decode state, as JAX's `serve_zoo` does. The steps
+    go through `make_decode_step(model)`. Prints tokens/s, the
+    device and whether the steps were captured, and with `metrics_out`
+    writes them to a JSONL run-log ("decode" record: `captured`,
+    `eager_reason`). Returns the (2, steps) generated tokens. Raises
+    ValueError when `steps` exceeds the 128-slot cache."""
     from repro_torch.archs.api import get_model
     from repro_torch.configs import get_config
 
@@ -174,6 +235,7 @@ def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
     dev = resolve_device(device)
     cfg = get_config(arch).reduced()
     model = get_model(cfg)
+    step = make_decode_step(model)
     gen = torch.Generator(dev).manual_seed(seed)
     params = model.init(gen, dev)
     tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
@@ -188,7 +250,7 @@ def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for pos in range(steps):
-            logits, state = model.decode_step(params, state, tokens, pos)
+            logits, state = step(params, state, tokens, pos)
             tokens = torch.argmax(logits[:, -1:], dim=-1)
             out.append(tokens)
         if dev.type == "cuda":
@@ -197,7 +259,15 @@ def serve_zoo(arch: str, steps: int, device=None, seed: int = 0):
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "CPU")
     print(f"[serve-zoo] {arch} (reduced): {steps} decode steps, "
-          f"{steps * b / dt:.1f} tok/s on {name}")
+          f"{steps * b / dt:.1f} tok/s on {name}, captured={step.captured}"
+          + (f" ({step.eager_reason})" if step.eager_reason else ""))
+    if metrics_out:
+        runlog = sink.RunLog(metrics_out, role="serve-zoo",
+                             extra={"arch": arch})
+        runlog.write("decode", steps=steps, batch=b, cache_len=cache_len,
+                     seconds=dt, tokens_per_sec=steps * b / dt,
+                     captured=step.captured, eager_reason=step.eager_reason)
+        runlog.close()
     return torch.cat(out, dim=1)
 
 
@@ -247,7 +317,8 @@ def main(argv=None):
                     help="write a JSONL run-log: manifest, a serve record "
                          "with counters and the ingest/query latency "
                          "histograms, host spans and the kernel-dispatch "
-                         "table (tools/inspect_run.py)")
+                         "table (tools/inspect_run.py); with --zoo, a "
+                         "decode record (tokens/s, captured)")
     ap.add_argument("--trace-dir", default=None,
                     help="capture a torch.profiler trace of the first "
                          "--trace-steps ingest calls into this directory")
@@ -263,7 +334,8 @@ def main(argv=None):
                     help="torch device; default cuda (raises without one)")
     args = ap.parse_args(argv)
     if args.zoo:
-        return serve_zoo(args.zoo, args.steps, args.device, args.seed)
+        return serve_zoo(args.zoo, args.steps, args.device, args.seed,
+                         metrics_out=args.metrics_out)
     return serve_mdgnn(args)
 
 

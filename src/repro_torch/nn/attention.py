@@ -327,47 +327,72 @@ def init_cache(batch: int, cache_len: int, n_kv: int, d_head: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(params, x, cache, pos: int, *, d_head: int,
+def check_pos(pos: int, cache_len: int) -> None:
+    """The host check of a global layer's decode position: ValueError
+    unless 0 <= pos < cache_len."""
+    if not 0 <= pos < cache_len:
+        raise ValueError(f"decode_attention: position {pos} is outside the "
+                         f"cache of a global layer (cache_len {cache_len})")
+
+
+def decode_attention(params, x, cache, pos, *, d_head: int,
                      window: int | None = None,
                      rope_theta: float | None = 10000.0,
                      mrope_sections=None, mrope_positions=None,
                      softmax_scale_cap: float | None = None):
-    """One-token decode. x: (B, 1, d); pos: the token's position (int).
+    """One-token decode. x: (B, 1, d); pos: the token's position, an int
+    or a 0-d integer tensor on x's device (JAX's traced scalar: nothing
+    reads it on the host, so the step can be one CUDA graph for every
+    position).
 
     For windowed layers the cache is a ring buffer (write slot pos %
-    cache_len); a global layer writes slot pos and raises ValueError when
-    pos >= cache_len (the JAX version's dynamic_update_slice clamps the
-    slot to the last one instead). The new k and v are written into
-    `cache` IN PLACE (the JAX version returns updated copies; an
-    8,192-slot cache would be copied every step); returns (y, cache).
-    With `mrope_sections`, q and k turn by M-RoPE at `mrope_positions`
-    (B, 3, 1)."""
+    cache_len); a global layer writes slot pos and, with an int pos,
+    raises ValueError when pos >= cache_len (the JAX version's
+    dynamic_update_slice clamps the slot to the last one instead; with a
+    tensor pos the caller checks, `check_pos`). The new k and v are
+    written into `cache` IN PLACE (the JAX version returns updated copies;
+    an 8,192-slot cache would be copied every step): at an int slot
+    through `annotate.write_index` (a DTensor cache's owning shard), at a
+    tensor slot by `index_copy_`. Returns (y, cache). With
+    `mrope_sections`, q and k turn by M-RoPE at `mrope_positions` (B, 3,
+    1)."""
     b_, s, _ = x.shape
     if s != 1:
         raise ValueError(f"decode_attention takes one token, got S={s}")
-    pos = int(pos)
+    on_host = not isinstance(pos, torch.Tensor)
     cache_len = cache["k"].shape[1]
-    if window is None and not 0 <= pos < cache_len:
-        raise ValueError(f"decode_attention: position {pos} is outside the "
-                         f"cache of a global layer (cache_len {cache_len})")
+    if on_host:
+        pos = int(pos)
+        if window is None:
+            check_pos(pos, cache_len)
     q, k, v = _project_qkv(params, x, x, d_head)
     if mrope_sections is not None:
         q = apply_mrope(q, mrope_positions, mrope_sections, rope_theta)
         k = apply_mrope(k, mrope_positions, mrope_sections, rope_theta)
     elif rope_theta is not None:
-        posv = torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
+        posv = (torch.full((b_, 1), pos, dtype=torch.int32, device=x.device)
+                if on_host else pos.to(torch.int32).expand(b_, 1))
         q = apply_rope(q, posv, rope_theta)
         k = apply_rope(k, posv, rope_theta)
     ck, cv = cache["k"], cache["v"]
-    slot = pos % cache_len if window is not None else pos
-    # on a DTensor cache, only the shard that holds the slot writes
-    annotate.write_index(ck, 1, slot, k[:, 0].to(ck.dtype))
-    annotate.write_index(cv, 1, slot, v[:, 0].to(cv.dtype))
+    if on_host:
+        slot = pos % cache_len if window is not None else pos
+        # on a DTensor cache, only the shard that holds the slot writes
+        annotate.write_index(ck, 1, slot, k[:, 0].to(ck.dtype))
+        annotate.write_index(cv, 1, slot, v[:, 0].to(cv.dtype))
+    else:
+        slot = torch.remainder(pos, cache_len) if window is not None else pos
+        index = slot.reshape(1).long()
+        with torch.no_grad():
+            ck.index_copy_(1, index, k.to(ck.dtype))
+            cv.index_copy_(1, index, v.to(cv.dtype))
     kpos = torch.arange(cache_len, device=x.device)
     if window is not None:
         # ring buffer: slot j holds absolute position pos - ((slot - j) mod L)
         abs_pos = pos - torch.remainder(slot - kpos, cache_len)
-        valid = (abs_pos >= max(0, pos - window + 1)) & (abs_pos <= pos)
+        first = (max(0, pos - window + 1) if on_host
+                 else torch.clamp(pos - window + 1, min=0))
+        valid = (abs_pos >= first) & (abs_pos <= pos)
     else:
         valid = kpos <= pos
     out = _dense_attention(q, ck, cv, x.dtype, cap=softmax_scale_cap,

@@ -170,8 +170,11 @@ def slstm(params, x, *, n_heads: int, init_state=None,
 
 
 def slstm_decode_init(batch: int, d_model: int, device=None):
-    zero = torch.zeros((batch, d_model), dtype=torch.float32, device=device)
-    return (zero, zero, zero)
+    """(h, c, n) zeros, three tensors: a state written in place (the
+    captured decode step copies the new state into it) must not alias
+    itself, as JAX's one zero array may."""
+    return tuple(torch.zeros((batch, d_model), dtype=torch.float32,
+                             device=device) for _ in range(3))
 
 
 def slstm_decode(params, x, state, *, n_heads: int):

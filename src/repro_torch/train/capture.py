@@ -153,12 +153,15 @@ class StepGraphs:
         return why is not None
 
     def run(self, key, fn: Callable, carry, inputs, generator=None,
-            warm: Callable | None = None):
+            warm: Callable | None = None, warm_carry: Callable = clone):
         """Replay the graph of `key` on `inputs` (captured first on this
         carry and generator if it has none): `fn(carry, inputs) ->
         (carry, outputs)` updates `carry` in place; returns clones of the
         outputs. `warm` maps the static inputs to the warm-up step's (the
-        scan engine warms up on one step of its macro)."""
+        scan engine warms up on one step of its macro); `warm_carry` maps
+        the carry to the warm-up step's (a copy by default; the decode
+        step copies its state but not its read-only parameters, which may
+        fill most of the card)."""
         key = (key, tuple((tuple(x.shape), x.dtype)
                           for x in leaves(inputs)),
                torch.are_deterministic_algorithms_enabled())
@@ -166,25 +169,26 @@ class StepGraphs:
         g = self._graphs.get(key)
         if g is None or g.carry_ptrs != ptrs or g.generator is not generator:
             g = self._graphs[key] = self._capture(fn, carry, inputs, ptrs,
-                                                  generator, warm)
+                                                  generator, warm, warm_carry)
         for buf, x in zip(leaves(g.inputs), leaves(inputs)):
             buf.copy_(x)
         g.graph.replay()
         kops.add_launches(g.census)
         return clone(g.outputs)
 
-    def _capture(self, fn, carry, inputs, ptrs, generator, warm) -> _Graph:
+    def _capture(self, fn, carry, inputs, ptrs, generator, warm,
+                 warm_carry) -> _Graph:
         dev = leaves(inputs)[0].device
         static = clone(inputs)
-        # one step on clones of the carry, on a side stream, leaving the
-        # generator and the launch counters as they were
+        # one step on copies of the carry (`warm_carry`), on a side stream,
+        # leaving the generator and the launch counters as they were
         rng = generator.get_state() if generator is not None else None
         before = kops.launch_census()
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            fn(clone(carry), static if warm is None else warm(static))
+            fn(warm_carry(carry), static if warm is None else warm(static))
         main.wait_stream(side)
         torch.cuda.synchronize(dev)
         kops.add_launches(kops.launches_since(before), -1)

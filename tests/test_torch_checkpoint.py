@@ -17,6 +17,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 import jax
 

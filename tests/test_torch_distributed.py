@@ -27,6 +27,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 import torch.distributed as dist
 
 import jax

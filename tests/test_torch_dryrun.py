@@ -20,6 +20,7 @@ import os
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jget_config

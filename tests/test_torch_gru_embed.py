@@ -29,6 +29,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")

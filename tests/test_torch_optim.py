@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 import jax
 import jax.numpy as jnp

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 import jax
 import jax.numpy as jnp

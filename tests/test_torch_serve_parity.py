@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 from repro_torch.graph import datasets as tdatasets
 from repro_torch.graph.events import EventBatch

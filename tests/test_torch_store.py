@@ -16,6 +16,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (threads under xdist)
 
 from repro.graph import csr as jcsr
 from repro.graph import datasets as jdatasets
